@@ -6,14 +6,20 @@
 Phases (any failure raises, so the exit code is non-zero and no result is
 printed):
 
-1. card and build: the ``nvidia-smi`` name/power-limit line; both CUDA
+1. card and build: the ``nvidia-smi`` name/power-limit line; all five CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, in
    parallel) with ptxas' register and spill report;
 2. kernel == plain version, exactly, on the card: K1 ``fused_lookup`` on
    four 200k-key mirrors of the scaled 512-B geometry and a 20M-key ``osm``
    mirror of the default geometry, each without and with an overlay of
-   upserts and tombstones; K2 ``overlay_merge`` on random packs (empty,
-   all-overlap, tombstones, cap growth, Ca = 2^24 with Cb = 512);
+   upserts and tombstones; on the same mirrors and queries (edge keys up
+   to ``2**64-1`` included) K5 ``inner_probe`` (root predictions and random
+   slots), K4 ``leaf_search`` (K1's leaf rows and PA rows), K3
+   ``overlay_probe`` (an empty overlay and one with tombstones), and the
+   staged read ``inner_probe_lookup`` against K1 on found and found
+   payloads; K4 on full rows (rank == C) and K3 on a full pack; K2
+   ``overlay_merge`` on random packs (empty, all-overlap, tombstones, cap
+   growth, Ca = 2^24 with Cb = 512);
 3. the main path: ``IndexEngine`` serving 200M covid-like keys (payload =
    key + 1, default 4 KB geometry — the paper's evaluation size) for 50
    steps of 8192 gets (10% absent), 512 writes (60% new-key inserts, 30%
@@ -25,10 +31,20 @@ printed):
    background compactions, results checked the same way;
 5. the numbers: K1/K2 held once more against their plain versions on the
    main path's own tensors, then both timed with CUDA events at those
-   shapes (median launch; L2 flushed before each launch), their bytes
+   shapes (median launch; L2 flushed and the stream held before each
+   launch, so ``ms`` is the device's time alone), their bytes
    bounds, steps/s, p99 step time and peak device memory, each beside the
-   card's name and power limit; then the ``kernels`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   card's name and power limit;
+6. the staged read on the main path's mirror and served overlay pack: the
+   last step's 8192 gets through ``inner_probe_lookup`` (K5 rounds, K4 on
+   PA/BT and leaf rows) and ``overlay_probe`` (K3), with the launch counts
+   read around exactly this run; its snapshot answers equal K1's, its
+   merged answers the host oracle's; every K3/K4/K5 launch of that run
+   held against its plain version on the tensors it launched on, each
+   kernel timed like K1/K2 (``torch.searchsorted`` beside K3), and the
+   whole staged batch timed on the host clock beside K1's read of the same
+   batch; then the ``kernels`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 It exits non-zero without CUDA and when run outside a checkout of the
 repository (it imports the port from ``src/`` beside it).
@@ -58,6 +74,16 @@ K1_SOURCE = "src/repro_torch/csrc/fused_lookup.cu"
 K2_SOURCE = "src/repro_torch/csrc/overlay_merge.cu"
 K1_REPLACES = "src/repro/kernels/fused_lookup/fused_lookup.py:296"
 K2_REPLACES = "src/repro/kernels/overlay_merge/overlay_merge.py:108"
+# the staged read's kernels: name -> (source, TPU kernel replaced)
+STAGED = {
+    "overlay_probe": ("src/repro_torch/csrc/overlay_probe.cu",
+                      "src/repro/kernels/overlay_probe/overlay_probe.py:66"),
+    "leaf_search": ("src/repro_torch/csrc/leaf_search.cu",
+                    "src/repro/kernels/leaf_search/leaf_search.py:59"),
+    "inner_probe": ("src/repro_torch/csrc/inner_probe.cu",
+                    "src/repro/kernels/inner_probe/inner_probe.py:86"),
+}
+KERNELS = ("fused_lookup", "overlay_merge", *STAGED)
 
 
 def log(*a) -> None:
@@ -75,8 +101,8 @@ def card_line() -> str:
 def build_kernels() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build("fused_lookup", "overlay_merge")
-    log(f"build: both kernels in {time.perf_counter() - t0:.3f} s")
+    _build.build(*KERNELS)
+    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.3f} s")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -89,8 +115,8 @@ class Parity:
     main-path launches (the counters are reset before the main path)."""
 
     def __init__(self):
-        self.cases = {"fused_lookup": 0, "overlay_merge": 0}
-        self.err = {"fused_lookup": 0.0, "overlay_merge": 0.0}
+        self.cases = dict.fromkeys(KERNELS, 0)
+        self.err = dict.fromkeys(KERNELS, 0.0)
 
     def hold(self, name: str, got, exp) -> None:
         import torch
@@ -142,13 +168,122 @@ def k1_parity(par: Parity, dev) -> None:
             ov.record_delete(int(k))
         arrs = L.device_arrays(di, dev)
         q = keys_to_tensor(_queries(keys, rng, 6000, 2000), dev)
-        for ovr in (None, L.overlay_arrays(ov, dev)):
-            got = fused_lookup(arrs, ovr, q, h)
-            par.hold("fused_lookup", got, lookup_plain(arrs, ovr, q, h))
-        log(f"k1 parity {name}-{tag} n={len(keys)} height={di.inner_height} "
-            f"slot tags NULL/DATA/PA/BT/MIXED={tags}: exact "
-            f"({time.perf_counter() - t0:.3f} s)")
+        ovr = L.overlay_arrays(ov, dev)
+        for o in (None, ovr):
+            got = fused_lookup(arrs, o, q, h)
+            par.hold("fused_lookup", got, lookup_plain(arrs, o, q, h))
+        staged_parity(par, arrs, ovr, di.inner_height, q, h, rng)
+        log(f"k1/k3/k4/k5 parity {name}-{tag} n={len(keys)} height="
+            f"{di.inner_height} slot tags NULL/DATA/PA/BT/MIXED={tags}: "
+            f"exact; staged read == K1 ({time.perf_counter() - t0:.3f} s)")
         del arrs, idx, di
+
+
+def staged_parity(par: Parity, arrs: dict, ovr: dict, inner_height: int,
+                  q, h: int, rng) -> None:
+    """K3/K4/K5 == their plain versions on one mirror's tensors, and the
+    staged read == K1 on found and found payloads (snapshot and merged)."""
+    import torch
+    from repro_torch.core.keys import key_f64
+    from repro_torch.core.lookup import empty_overlay_pack
+    from repro_torch.kernels import ProbeIndex
+    from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.inner_probe import ops as k5
+    from repro_torch.kernels.leaf_search import ops as k4
+    from repro_torch.kernels.overlay_probe import ops as k3
+
+    Q, dev = q.shape[0], q.device
+    S = arrs["slot_tag"].shape[0]
+    pi = ProbeIndex(arrs, inner_height)
+    for s in (pi.predict(torch.zeros_like(q), key_f64(q)),
+              torch.from_numpy(rng.integers(0, S, Q).astype(np.int32)
+                               ).to(dev)):
+        par.hold("inner_probe", k5.probe_level(arrs, s, q),
+                 k5.probe_level_plain(arrs, s, q))
+    _, _, leaf = fused_lookup(arrs, None, q, h)
+    npa = arrs["pa_keys"].shape[0]
+    pa_rows = torch.from_numpy(rng.integers(0, npa, Q).astype(np.int32)
+                               ).to(dev)
+    for keys, pay, rows in ((arrs["leaf_keys"], arrs["leaf_pay"], leaf),
+                            (arrs["pa_keys"], pi.pa_pay, pa_rows)):
+        par.hold("leaf_search", k4.leaf_search(keys, pay, rows, q),
+                 k4.leaf_search_plain(keys, pay, rows, q))
+    empty = {"ov_pack": empty_overlay_pack(1024, dev)}
+    for o in (empty, ovr):
+        par.hold("overlay_probe", k3.overlay_probe(o, q),
+                 k3.overlay_probe_plain(o, q))
+    for o in (None, ovr):
+        pay, found = _staged_read(pi, o, q)
+        k1_pay, k1_found, _ = fused_lookup(arrs, o, q, h)
+        torch.cuda.synchronize()
+        if not (torch.equal(found, k1_found)
+                and torch.equal(torch.where(found, pay, 0), k1_pay)):
+            raise AssertionError("staged read != K1 on "
+                                 f"{int((found != k1_found).sum())} found "
+                                 "flags or on found payloads")
+
+
+def _staged_read(pi, ovr, q, trace=None):
+    """The staged read merged with K3 by the reference's rule
+    (``src/repro/kernels/overlay_probe/ops.py:14-18``): hit & ~tomb -> the
+    overlay payload, tomb -> a miss, else the snapshot.  (payload, found).
+    ``trace`` collects each kernel call (``inner_probe_lookup``'s hook)."""
+    import torch
+    from repro_torch.kernels import inner_probe_lookup, overlay_probe
+    pay, found = inner_probe_lookup(pi, q, trace=trace)
+    if ovr is None:
+        return pay, found
+    opay, hit, tomb = overlay_probe(ovr, q)
+    if trace is not None:
+        trace.append(("overlay_probe", (ovr, q), (opay, hit, tomb)))
+    return torch.where(hit & ~tomb, opay, pay), torch.where(hit, ~tomb, found)
+
+
+def _check_oracle(oracle, qs: np.ndarray, pay, found) -> int:
+    """The merged read of ``qs`` == the oracle's answers; returns the
+    found count."""
+    from repro_torch.core.keys import bits_from_tensor
+    exp = oracle.gets(qs)
+    got_f = found.cpu().numpy()
+    got_p = bits_from_tensor(pay)
+    bad = [i for i, e in enumerate(exp) if got_f[i] != (e is not None)
+           or (e is not None and int(got_p[i]) != e)]
+    if bad:
+        raise AssertionError(f"staged read: {len(bad)} of {qs.size} keys "
+                             f"differ from the oracle, first at "
+                             f"{int(qs[bad[0]])}")
+    return int(got_f.sum())
+
+
+def k34_edge_parity(par: Parity, dev) -> None:
+    """K4 on full rows (every query above its row: rank == C, payload 0)
+    and K3 on a pack with no padding left (rank == cap)."""
+    import torch
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.core.lookup import overlay_from_numpy
+    from repro_torch.kernels.leaf_search import ops as k4
+    from repro_torch.kernels.overlay_probe import ops as k3
+    rng = np.random.default_rng(9)
+    for C in (32, 256):
+        keys = np.sort(rng.integers(0, 2**63, (4096, C), dtype=np.uint64),
+                       axis=1)
+        rows = rng.integers(0, 4096, 8192).astype(np.int32)
+        q = keys[rows, -1] + np.uint64(1)
+        q[::2] = keys[rows[::2], rng.integers(0, C, 4096)]
+        kt = keys_to_tensor(keys.reshape(-1), dev).reshape(keys.shape)
+        pt = torch.from_numpy(keys.view(np.int64) ^ 77).to(dev)
+        rt, qt = torch.from_numpy(rows).to(dev), keys_to_tensor(q, dev)
+        got = k4.leaf_search(kt, pt, rt, qt)
+        par.hold("leaf_search", got, k4.leaf_search_plain(kt, pt, rt, qt))
+        if got[1][1::2].any() or got[0][1::2].any() or not got[1][::2].all():
+            raise AssertionError(f"leaf_search C={C}: rank == C misread")
+    full = _pack(rng, rng.choice(2**62, 4096, replace=False), 4096)
+    ovr = overlay_from_numpy(full, dev)
+    q = keys_to_tensor(np.concatenate([full[0, :2048], np.array(
+        [2**63, 2**64 - 2, 2**64 - 1], dtype=np.uint64)]), dev)
+    par.hold("overlay_probe", k3.overlay_probe(ovr, q),
+             k3.overlay_probe_plain(ovr, q))
+    log("k3/k4 parity edge cases (rank == C, full pack): exact")
 
 
 def _pack(rng, keys, cap: int) -> np.ndarray:
@@ -415,15 +550,22 @@ def compaction_phase(dev) -> None:
 
 
 # ------------------------------------------------------------------- phase 5
+HOLD_CYCLES = 2_000_000     # about 1 ms of spinning at the H100's clocks
+
+
 def time_cuda(fn, reps: int, flush) -> np.ndarray:
     """ms of each of ``reps`` launches of ``fn``, each timed by CUDA events
-    after a write of ``flush`` evicted L2."""
+    after a write of ``flush`` evicted L2.  The stream then spins on the
+    card for ``HOLD_CYCLES`` (``torch.cuda._sleep``), so the host has
+    enqueued ``fn``'s launches before the start event fires and the events
+    time the device's work alone, not the host's enqueue."""
     import torch
     fn()
     torch.cuda.synchronize()
     evs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -455,9 +597,10 @@ def measure(mp: dict, par: Parity, dev) -> list:
     par.hold("fused_lookup", got, lookup_plain(arrs, ovr, q, h))
     log(f"k1 parity main path (200M-key mirror, Q={Q}, overlay "
         f"{tuple(ovr['ov_pack'].shape)}): exact")
-    k1_ms = time_cuda(lambda: fused_lookup(arrs, ovr, q, h), 50, flush)
+    def k1():
+        return fused_lookup(arrs, ovr, q, h)
+    k1_ms = time_cuda(k1, 50, flush)
     k1_plain = time_cuda(lambda: lookup_plain(arrs, ovr, q, h), 10, flush)
-    spread = {"fused_lookup": k1_ms}
     leaf = got[2]
     C = arrs["leaf_keys"].shape[1]
     rows = int(torch.unique(leaf).numel())
@@ -482,13 +625,11 @@ def measure(mp: dict, par: Parity, dev) -> list:
              (merge_overlay_pack_torch(pack, batch, cap_out),))
     log(f"k2 parity main path (served pack, live {live}, Cb="
         f"{batch.shape[1]}): exact")
-    k2_ms = time_cuda(lambda: overlay_merge(pack, batch, cap_out), 20, flush)
+    def k2():
+        return overlay_merge(pack, batch, cap_out)
+    k2_ms = time_cuda(k2, 20, flush)
     k2_plain = time_cuda(lambda: merge_overlay_pack_torch(pack, batch,
                                                           cap_out), 5, flush)
-    spread["overlay_merge"] = k2_ms
-    for name, t in spread.items():
-        log(f"{name} launch times (ms): min {t.min()} p50 {np.median(t)} "
-            f"max {t.max()} over {t.size} launches")
     nb = int((batch[0] != BIASED_MAX).sum())
     k2_bytes = 24 * (live + nb) + 24 * cap_out
     log(f"timing shapes: K1 Q={Q} height={h} leaf rows={rows} overlay "
@@ -516,6 +657,144 @@ def measure(mp: dict, par: Parity, dev) -> list:
     ]
 
 
+def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
+    """The staged block-at-a-time read (``examples/quickstart.py`` §3) on
+    the main path's 200M-key mirror and served overlay pack, over the last
+    step's get batch: launch counts around exactly that run, its answers
+    against K1 and the host oracle, K3/K4/K5 against their plain versions
+    on those tensors, their times and bounds, and the staged batch's host
+    time beside K1's for the same reads."""
+    import torch
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.kernels import ProbeIndex, inner_probe_lookup
+    from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.inner_probe import ops as k5
+    from repro_torch.kernels.leaf_search import ops as k4
+    from repro_torch.kernels.overlay_probe import ops as k3
+    from repro_torch.serving import pad_queries
+
+    eng = mp["engine"]
+    arrs, ovr, h = eng.arrs, eng.ov_arrs, eng._height()
+    gets = [r[1] for r in mp["trace"][-1] if r[0] == "get"]
+    q = keys_to_tensor(pad_queries(gets), dev)
+    Q, n = q.shape[0], len(gets)
+    pi = ProbeIndex(arrs, eng.di.inner_height)
+    wrappers = {"overlay_probe": k3.overlay_probe,
+                "leaf_search": k4.leaf_search, "inner_probe": k5.probe_level}
+    for w in wrappers.values():
+        w.launches = 0
+    trace = []
+    pay, found = _staged_read(pi, ovr, q, trace)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"staged read (200M-key mirror, Q={Q}, overlay "
+        f"{tuple(ovr['ov_pack'].shape)}): launches {json.dumps(launches)}")
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"{k} was not launched on the staged path")
+
+    # answers: the snapshot read == K1's, the merged read == the oracle's
+    snap_pay, snap_found, rounds = inner_probe_lookup(pi, q, count_rounds=True)
+    k1_pay, k1_found, _ = fused_lookup(arrs, None, q, h)
+    if not (torch.equal(snap_found, k1_found) and torch.equal(
+            torch.where(snap_found, snap_pay, 0), k1_pay)):
+        raise AssertionError("staged snapshot read != K1 on the main path")
+    oracle = mp["oracle"]
+    n_found = _check_oracle(oracle, np.array(gets, dtype=np.uint64),
+                            pay[:n], found[:n])
+    # and where the overlay decides: a batch of keys written since the
+    # snapshot (inserts, updates, deletes)
+    wk = np.array(sorted(oracle.writes), dtype=np.uint64)
+    wq = np.random.default_rng(17).choice(wk, min(Q, wk.size), replace=False)
+    w_pay, w_found = _staged_read(pi, ovr, keys_to_tensor(wq, dev))
+    w_n = _check_oracle(oracle, wq, w_pay, w_found)
+    log(f"staged read == K1 snapshot read and == the oracle on all {n} "
+        f"gets ({n_found} found; {rounds} rounds incl. the leaf) and on "
+        f"{wq.size} written keys ({w_n} found)")
+
+    # each launch of that run == its plain version on the same tensors
+    plain = {"probe_level": ("inner_probe", k5.probe_level_plain),
+             "leaf_search": ("leaf_search", k4.leaf_search_plain),
+             "overlay_probe": ("overlay_probe", k3.overlay_probe_plain)}
+    for fn, args, out in trace:
+        name, ref = plain[fn]
+        par.hold(name, out, ref(*args))
+    calls = [fn for fn, _, _ in trace]
+    log(f"k3/k4/k5 parity main path: every launch of the staged read "
+        f"({calls.count('probe_level')} K5 rounds, "
+        f"{calls.count('leaf_search')} K4 calls on PA/BT and leaf rows, "
+        f"K3 on the served pack) == its plain version on its own tensors: "
+        "exact")
+
+    # times at these shapes (median launch, L2 flushed before each): K5 on
+    # the root round's slots, K4 on the final leaf rows, as launched above
+    s0 = next(args[1] for fn, args, _ in trace if fn == "probe_level")
+    leaf = [args[2] for fn, args, _ in trace if fn == "leaf_search"][-1]
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    keys, pays = arrs["leaf_keys"], arrs["leaf_pay"]
+    pack = ovr["ov_pack"]
+    t = {
+        "inner_probe": (lambda: k5.probe_level(arrs, s0, q),
+                        lambda: k5.probe_level_plain(arrs, s0, q), None),
+        "leaf_search": (lambda: k4.leaf_search(keys, pays, leaf, q),
+                        lambda: k4.leaf_search_plain(keys, pays, leaf, q),
+                        None),
+        "overlay_probe": (lambda: k3.overlay_probe(ovr, q),
+                          lambda: k3.overlay_probe_plain(ovr, q),
+                          lambda: torch.searchsorted(pack[0], q)),
+    }
+    ms = {k: (time_cuda(f, 50, flush), time_cuda(p, 10, flush),
+              time_cuda(lib, 50, flush) if lib else None)
+          for k, (f, p, lib) in t.items()}
+    hits = int(k3.overlay_probe(ovr, q)[1].sum())
+    rows = int(torch.unique(leaf).numel())
+    C = keys.shape[1]
+    # bytes each must move (inputs read once, outputs written once, only
+    # what this batch touches): K4 each distinct leaf row's keys, then per
+    # query its row id, key, the payload at the rank, payload + found out;
+    # K5 per query its slot, key, next_occ, one slot key, tag and ptr,
+    # kind + val out; K3 per query its key, the pack key and payload at
+    # the rank, payload + hit + tomb out, and the tombstone flag of a hit
+    bytes_ = {"leaf_search": rows * C * 8 + Q * (4 + 8 + 8 + 9),
+              "inner_probe": Q * (4 + 8 + 4 + 8 + 4 + 4 + 8),
+              "overlay_probe": Q * (8 + 8 + 8 + 10) + hits * 8}
+
+    # the whole staged batch on the host clock, beside K1's read of it
+    def host_ms(fn, reps=10):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.array(out)
+    staged = host_ms(lambda: _staged_read(pi, ovr, q))
+    k1 = host_ms(lambda: fused_lookup(arrs, ovr, q, h))
+    summary = {"card": card, "Q": Q, "rounds": rounds,
+               "staged_ms_p50": float(np.median(staged)),
+               "staged_ms_min": float(staged.min()),
+               "k1_ms_p50": float(np.median(k1)),
+               "k1_ms_min": float(k1.min()),
+               "ratio_p50": float(np.median(staged) / np.median(k1)),
+               "leaf_rows": rows, "overlay_hits": hits}
+    mp["summary"]["staged"] = summary
+    log("staged batch vs K1 (host clock, ms): " + json.dumps(summary))
+    out = []
+    for k, (src, replaces) in STAGED.items():
+        km, pm, lm = ms[k]
+        out.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": par.err[k],
+            "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+            "plain_ms": float(np.median(pm)),
+            "bound_ms": bytes_[k] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": float(np.median(lm)) if lm is not None else None,
+            "parity": "exact", "cases": par.cases[k]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -532,13 +811,16 @@ def main() -> int:
     build_kernels()
     par = Parity()
     k1_parity(par, dev)
+    k34_edge_parity(par, dev)
     k2_parity(par, dev)
     mp = main_path(MAIN_KEYS, MAIN_STEPS, dev, card)
     mp["summary"]["breakdown_s"] = breakdown(mp, 5)
     compaction_phase(dev)
     kernels = measure(mp, par, dev)
+    kernels += staged_phase(mp, par, dev, card)
     for k in kernels:
-        log(f"{k['name']} on {card}: median launch {k['ms']} ms (mean "
+        log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
+            f"time, stream held (mean "
             f"{k['mean_ms']} ms; plain median {k['plain_ms']} ms,"
             f" bound {k['bound_ms']} ms by {k['bound_by']}), "
             f"{k['launches']} launches on the main path")

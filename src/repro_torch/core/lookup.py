@@ -23,8 +23,7 @@ import torch
 from ..device import resolve
 from ..kernels.fused_lookup.ops import (KEY_FIELDS, POOL_DTYPES, STALE_STEPS,
                                         TAG_BT, TAG_DATA, TAG_MIXED, TAG_NULL,
-                                        TAG_PA, fused_lookup,
-                                        overlay_probe_plain)
+                                        TAG_PA, fused_lookup)
 from ..kernels.overlay_merge.ops import merge_overlay_pack_torch, overlay_merge
 from .delta_overlay import DeltaOverlay, UINT64_MAX, merge_overlays, next_pow2
 from .device_index import _STACK_2D, _STACK_3D, DeviceIndex
@@ -110,9 +109,6 @@ def lookup_batch_overlay(arrs: dict, ovr: dict, q: torch.Tensor,
     """Point lookup over snapshot + overlay: an overlay hit wins, a
     tombstone hides the key.  Same returns as :func:`lookup_batch`."""
     return fused_lookup(arrs, ovr, q, height)
-
-
-_overlay_probe = overlay_probe_plain
 
 
 # ---------------------------------------------------------------------- scans

@@ -2,12 +2,20 @@
 version in its ``ops.py`` (the CUDA sources live in ``../csrc``):
 
 * ``fused_lookup``  (K1) — the batched point read;
-* ``overlay_merge`` (K2) — the write batch's merge into the overlay pack.
+* ``overlay_merge`` (K2) — the write batch's merge into the overlay pack;
+* ``overlay_probe`` (K3) — the overlay's verdict per query;
+* ``leaf_search``   (K4) — one row's rank search per query;
+* ``inner_probe``   (K5) — one inner-level resolve per query, and the staged
+  block-at-a-time read ``inner_probe_lookup`` built from K5 and K4.
 
 Importing this package builds nothing: a kernel is compiled at its first
 launch (``_build``)."""
 from .fused_lookup.ops import fused_lookup, lookup_plain
+from .inner_probe.ops import ProbeIndex, inner_probe_lookup
+from .leaf_search.ops import leaf_search
 from .overlay_merge.ops import merge_overlay_pack_torch, overlay_merge
+from .overlay_probe.ops import overlay_probe
 
 __all__ = ["fused_lookup", "lookup_plain", "merge_overlay_pack_torch",
-           "overlay_merge"]
+           "overlay_merge", "ProbeIndex", "inner_probe_lookup",
+           "leaf_search", "overlay_probe"]

@@ -21,6 +21,7 @@ import torch
 
 from ...core.keys import key_f64
 from .. import _build
+from ..overlay_probe.ops import overlay_probe_plain
 
 TAG_NULL, TAG_DATA, TAG_PA, TAG_BT, TAG_MIXED = 0, 1, 2, 3, 4
 STALE_STEPS = 4  # successor-chain steps per level (the reference's bound)
@@ -61,17 +62,6 @@ def _row_search(pool: torch.Tensor, rows: torch.Tensor, q: torch.Tensor):
 def _pick(mat: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """``mat[i, cols[i]]`` per row."""
     return mat.gather(1, cols.long()[:, None])[:, 0]
-
-
-def overlay_probe_plain(pack: torch.Tensor, q: torch.Tensor):
-    """(hit, tombstone, payload) of each query in the sorted (3, cap)
-    overlay pack — ``_overlay_probe`` of the reference."""
-    keys, pays, tombs = pack[0], pack[1], pack[2] != 0
-    cap = keys.shape[0]
-    pos = torch.searchsorted(keys, q)
-    posc = pos.clamp(0, cap - 1)
-    hit = (pos < cap) & (keys[posc] == q)
-    return hit, hit & tombs[posc], pays[posc]
 
 
 def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
@@ -131,7 +121,7 @@ def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
     found = (pos < cap) & (_pick(blk, posm) == q)
     pay = _pick(_take(arrs["leaf_pay"], leaf), posm)
     if ovr is not None:
-        hit, tomb, opay = overlay_probe_plain(ovr["ov_pack"], q)
+        opay, hit, tomb = overlay_probe_plain(ovr, q)
         pay = torch.where(hit & ~tomb, opay, pay)
         found = torch.where(hit, ~tomb, found)
     return torch.where(found, pay, 0), found, leaf

@@ -1,6 +1,7 @@
 """Card-only tests: each hand-written CUDA kernel == its plain PyTorch
-version on the same tensors, exactly, and the engine on the card == the
-engine on the CPU, request for request.
+version on the same tensors, exactly; the engine on the card == the engine
+on the CPU, request for request; the staged read on the card == on the
+CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports only the port, so it runs
@@ -14,10 +15,13 @@ import torch
 from repro_torch.core import Aulid, AulidConfig, BlockDevice, DeltaOverlay
 from repro_torch.core import lookup as port
 from repro_torch.core.device_index import build_device_index
-from repro_torch.core.keys import keys_to_tensor
+from repro_torch.core.keys import key_f64, keys_to_tensor
 from repro_torch.core.workloads import make_dataset, payloads_for
 from repro_torch.kernels.fused_lookup import ops as k1
+from repro_torch.kernels.inner_probe import ops as k5
+from repro_torch.kernels.leaf_search import ops as k4
 from repro_torch.kernels.overlay_merge import ops as k2
+from repro_torch.kernels.overlay_probe import ops as k3
 from repro_torch.serving import IndexEngine
 
 pytestmark = pytest.mark.gpu
@@ -167,3 +171,129 @@ def test_engine_on_card_matches_cpu(cuda, async_compact):
     st = [e.stats() for e in engines]
     assert st[1]["read_backend"] == "cuda"
     assert st[0]["compactions"] == st[1]["compactions"] >= 1
+
+
+def _same(got, exp):
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+EDGES = np.array([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**64 - 2, UM],
+                 dtype=np.uint64)
+
+
+@pytest.mark.parametrize("C", [7, 32, 256])
+def test_leaf_search_kernel_matches_plain(cuda, C):
+    """Present, absent and edge keys; padded rows; rank == C (payload 0)
+    on full rows; rows out of range are clamped by both."""
+    rng = np.random.default_rng(C)
+    L, Q = 64, 3000
+    keys = np.sort(rng.integers(0, UM, (L, C), dtype=np.uint64), axis=1)
+    keys[1::3, C // 2:] = UM
+    keys[0] = np.sort(np.resize(EDGES, C))
+    pay = rng.integers(0, UM, (L, C), dtype=np.uint64)
+    rows = rng.integers(0, L, Q).astype(np.int32)
+    q = keys[rows, rng.integers(0, C, Q)]
+    q[1::4] = rng.integers(0, UM, q[1::4].shape[0], dtype=np.uint64)
+    rows[:EDGES.shape[0]] = 0
+    q[:EDGES.shape[0]] = EDGES
+    full = np.nonzero(keys[:, -1] < UM)[0]
+    rows[-64:] = rng.choice(full, 64)
+    q[-64:] = keys[rows[-64:], -1] + np.uint64(1)
+    rows[-70:-64] = [-5, -1, L, L + 9, 2**31 - 1, -2**31]
+    kt = keys_to_tensor(keys.reshape(-1), cuda).reshape(L, C)
+    pt = torch.from_numpy(pay.view(np.int64).copy()).to(cuda)
+    rt = torch.from_numpy(rows).to(cuda)
+    qt = keys_to_tensor(q, cuda)
+    n = k4.leaf_search.launches
+    got = k4.leaf_search(kt, pt, rt, qt)
+    assert k4.leaf_search.launches == n + 1
+    _same(got, k4.leaf_search_plain(kt, pt, rt, qt))
+    assert not got[1][-64:].any() and not got[0][-64:].any()
+    assert got[1][:min(C, EDGES.shape[0])].all()
+
+
+@pytest.mark.parametrize("name", ["covid", "planet", "genome", "osm"])
+def test_probe_level_kernel_matches_plain(cuda, name):
+    """Every slot of the mirror (stale hops, chains leaving the block, chain
+    ends, the partial last block) and the root predictions."""
+    keys = make_dataset(name, 50_000, seed=1)
+    idx = Aulid(BlockDevice(), cfg=AulidConfig(**GEOMS["512b"]))
+    idx.bulkload(keys, payloads_for(keys))
+    di = build_device_index(idx)
+    arrs = port.device_arrays(di, cuda)
+    pi = k5.ProbeIndex(arrs, di.inner_height)
+    S = arrs["slot_tag"].shape[0]
+    rng = np.random.default_rng(5)
+    q = keys_to_tensor(np.resize(_queries(keys, rng), S), cuda)
+    slots = torch.arange(S, dtype=torch.int32, device=cuda)
+    pred = pi.predict(torch.zeros_like(q), key_f64(q))
+    for s in (slots, pred, slots.flip(0).contiguous()):
+        n = k5.probe_level.launches
+        got = k5.probe_level(arrs, s, q)
+        assert k5.probe_level.launches == n + 1
+        _same(got, k5.probe_level_plain(arrs, s, q))
+
+
+def test_overlay_probe_kernel_matches_plain(cuda):
+    """An empty overlay, one of upserts and tombstones, a full pack; edge
+    keys and the UINT64_MAX query (which meets the padding)."""
+    rng = np.random.default_rng(11)
+    full = DeltaOverlay()
+    for k in rng.choice(2**40, full.arrays()["ov_keys"].shape[0],
+                        replace=False):
+        full.record_insert(int(k), 3)
+    mixed = DeltaOverlay()
+    live = rng.choice(2**62, 3000, replace=False).astype(np.uint64)
+    for i, k in enumerate(live):
+        if i % 4 == 3:
+            mixed.record_delete(int(k))
+        else:
+            mixed.record_insert(int(k), int(k) + 5)
+    q = keys_to_tensor(np.concatenate(
+        [live, rng.integers(0, 2**62, 2000, dtype=np.uint64), EDGES]), cuda)
+    for ov, padded in ((DeltaOverlay(), True), (mixed, True), (full, False)):
+        ovr = port.overlay_arrays(ov, cuda)
+        n = k3.overlay_probe.launches
+        got = k3.overlay_probe(ovr, q)
+        assert k3.overlay_probe.launches == n + 1
+        _same(got, k3.overlay_probe_plain(ovr, q))
+        # UINT64_MAX meets the padding; past a full pack its rank is cap
+        assert bool(got[1][-1]) == padded
+        assert not got[2][-1] and got[0][-1] == 0
+
+
+def test_staged_read_on_card_matches_cpu(cuda):
+    """The staged read (K5 rounds, K4 on PA/BT and leaf rows) on the card ==
+    its plain path on the CPU, rounds included, and == K1's snapshot read
+    on found and found payloads."""
+    keys = make_dataset("osm", 50_000, seed=1)
+    idx = Aulid(BlockDevice(), cfg=AulidConfig(**GEOMS["512b"]))
+    idx.bulkload(keys, payloads_for(keys))
+    di = build_device_index(idx)
+    rng = np.random.default_rng(2)
+    qn = _queries(keys, rng)
+    out = []
+    for dev in ("cpu", cuda):
+        pi = k5.ProbeIndex(port.device_arrays(di, dev), di.inner_height)
+        out.append(k5.inner_probe_lookup(pi, keys_to_tensor(qn, dev),
+                                         count_rounds=True))
+    n4, n5 = k4.leaf_search.launches, k5.probe_level.launches
+    pi = k5.ProbeIndex(port.device_arrays(di, cuda), di.inner_height)
+    q = keys_to_tensor(qn, cuda)
+    trace = []
+    pay, found, rounds = k5.inner_probe_lookup(pi, q, count_rounds=True,
+                                               trace=trace)
+    assert k5.probe_level.launches > n5 and k4.leaf_search.launches > n4
+    plain = {"probe_level": k5.probe_level_plain,
+             "leaf_search": k4.leaf_search_plain}
+    for fn, args, got in trace:      # every launch == its plain version
+        _same(got, plain[fn](*args))
+    assert rounds == out[0][2] == out[1][2] >= di.inner_height
+    for g, e in zip(out[1][:2], out[0][:2]):
+        assert torch.equal(g.cpu(), e)
+    k1_pay, k1_found, _ = k1.fused_lookup(pi.arrs, None, q,
+                                          max(di.max_inner_height, 3))
+    assert torch.equal(found, k1_found)
+    assert torch.equal(torch.where(found, pay, 0), k1_pay)

@@ -33,7 +33,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, out.stdout
+    assert int(count) >= 25, out.stdout   # K1-K5 modules included
     assert bad == "[]", out.stdout
 
 
@@ -63,10 +63,19 @@ def test_cuda_kernels_refuse_without_a_card():
     """A wrapper given a tensor on a device other than cpu or cuda raises;
     it never computes there through the plain version."""
     from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.inner_probe.ops import probe_level
+    from repro_torch.kernels.leaf_search.ops import leaf_search
     from repro_torch.kernels.overlay_merge.ops import overlay_merge
+    from repro_torch.kernels.overlay_probe.ops import overlay_probe
     q = torch.zeros(4, dtype=torch.int64, device="meta")
+    pack = torch.zeros((3, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         fused_lookup({}, None, q, 3)
     with pytest.raises(ValueError):
-        overlay_merge(torch.zeros((3, 4), dtype=torch.int64, device="meta"),
-                      q.reshape(1, 4), 4)
+        overlay_merge(pack, q.reshape(1, 4), 4)
+    with pytest.raises(ValueError):
+        overlay_probe({"ov_pack": pack}, q)
+    with pytest.raises(ValueError):
+        leaf_search(pack, pack, q.to(torch.int32), q)
+    with pytest.raises(ValueError):
+        probe_level({}, q.to(torch.int32), q)
