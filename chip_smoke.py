@@ -6,7 +6,7 @@
 Phases (any failure raises, so the exit code is non-zero and no result is
 printed):
 
-1. card and build: the ``nvidia-smi`` name/power-limit line; all five CUDA
+1. card and build: the ``nvidia-smi`` name/power-limit line; all six CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, in
    parallel) with ptxas' register and spill report;
 2. kernel == plain version, exactly, on the card: K1 ``fused_lookup`` on
@@ -43,8 +43,30 @@ printed):
    held against its plain version on the tensors it launched on, each
    kernel timed like K1/K2 (``torch.searchsorted`` beside K3), and the
    whole staged batch timed on the host clock beside K1's read of the same
-   batch; then the ``kernels`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+   batch;
+7. the LM serving path, after the index path's tensors are freed: the LM
+   ``ServeEngine`` on the card held to the same engine on the CPU on a tiny
+   config (equal tokens, logits within 1e-4); then qwen3-4b at full width
+   (36 layers, d_model 2560, 32 heads over 8 kv heads of 128, vocab
+   151,936; random float32 weights from a seeded ``torch.Generator``)
+   serving 16 requests (prompts of 32-256 tokens, 16 new tokens each) in 8
+   slots over a 512-page pool of 16-token pages, with the K1/K6 launch
+   counts read around exactly that run; every K6 launch of its first 4
+   steps held to ``paged_attention_plain`` on the tensors it launched on
+   (float32, 1e-5), every page translation (K1) held to the host index,
+   every request complete and every page reclaimed; the reference's
+   empty-slot defect (ROADMAP Queue 3) counted; tokens/s, step times and
+   their split into host work, translation, layers and head, peak memory;
+   then, with a fresh batch in every slot, device time by kernel over 8
+   steady steps at rows of 89-96 tokens (``torch.profiler``) and the
+   device's busy share;
+8. K6 alone at a long-context decode shape (16 rows of 2048-4096 tokens,
+   a shuffled 4096-page pool of one qwen3-4b layer, float32 and bfloat16):
+   held to its plain version (a row of length 0 and one of every token
+   included), timed like K1 beside its plain version and
+   ``scaled_dot_product_attention`` on the same KV gathered contiguous
+   (the gather not timed); then the ``kernels`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without CUDA and when run outside a checkout of the
 repository (it imports the port from ``src/`` beside it).
@@ -83,7 +105,22 @@ STAGED = {
     "inner_probe": ("src/repro_torch/csrc/inner_probe.cu",
                     "src/repro/kernels/inner_probe/inner_probe.py:86"),
 }
-KERNELS = ("fused_lookup", "overlay_merge", *STAGED)
+K6_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
+K6_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:77"
+KERNELS = ("fused_lookup", "overlay_merge", *STAGED, "paged_attention")
+# the LM serving path: qwen3-4b at full width, the engine's geometry
+LM_ARCH = "qwen3-4b"
+LM_ENGINE = dict(slots=8, page_size=16, n_pages=512, max_pages_per_seq=32)
+LM_REQUESTS = 16
+LM_PROMPT = (32, 256)            # prompt lengths, uniform, inclusive
+LM_MAX_NEW = 16
+LM_HELD_STEPS = 4                # steps whose every K6 launch is held
+LM_PROFILED_STEPS = 8            # steps traced by torch.profiler
+# the traced steps' rows hold 89-96 tokens, about the served run's mean
+LM_PROFILE_PROMPT, LM_PROFILE_WARM = 128, 88
+K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# K6 alone: 16 rows of 2048-4096 tokens over a shuffled one-layer pool
+K6_ROWS, K6_NP, K6_POOL = 16, 256, 4096
 
 
 def log(*a) -> None:
@@ -117,6 +154,7 @@ class Parity:
     def __init__(self):
         self.cases = dict.fromkeys(KERNELS, 0)
         self.err = dict.fromkeys(KERNELS, 0.0)
+        self.err_bf16 = dict.fromkeys(KERNELS, 0.0)
 
     def hold(self, name: str, got, exp) -> None:
         import torch
@@ -128,6 +166,28 @@ class Parity:
                                      f"{bad} of {g.numel()} entries")
             d = (g.to(torch.float64) - e.to(torch.float64)).abs().max()
             self.err[name] = max(self.err[name], float(d))
+        self.cases[name] += 1
+
+
+    def close(self, name: str, got, exp) -> None:
+        """A float kernel's output within its dtype's tolerance (``K6_TOL``,
+        absolute and relative) of its plain version's."""
+        import torch
+        torch.cuda.synchronize()
+        dt = str(got.dtype).removeprefix("torch.")
+        tol = K6_TOL[dt]
+        if got.dtype != exp.dtype or got.shape != exp.shape:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                                 f"!= {exp.dtype} {tuple(exp.shape)}")
+        g, e = got.double(), exp.double()
+        d = (g - e).abs()
+        if not bool((d <= tol + tol * e.abs()).all()) \
+                or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version by up to {float(d.max())} "
+                                 f"({dt}, tolerance {tol})")
+        err = self.err_bf16 if dt == "bfloat16" else self.err
+        err[name] = max(err[name], float(d.max()))
         self.cases[name] += 1
 
 
@@ -795,6 +855,364 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
     return out
 
 
+# ------------------------------------------------------------- phases 7 and 8
+def _lm_cfg():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
+def lm_parity(dev) -> None:
+    """The LM engine on the card == the same engine on the CPU (the plain
+    versions of K1 and K6), on a tiny config: equal tokens and positions,
+    logits within 1e-4, page pools within 1e-5."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+    cfg = dataclasses.replace(
+        _lm_cfg().reduced(), n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+        head_dim=32, d_ff=128, vocab_size=128, compute_dtype="float32")
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(slots=2, page_size=8, n_pages=64, max_pages_per_seq=8)
+    cpu = ServeEngine(cfg, cpu_model, device="cpu", **kw)
+    card = ServeEngine(cfg, copy.deepcopy(cpu_model).to(dev), device=dev,
+                       **kw)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 100, 4).tolist() for _ in range(7)]
+    for eng in (cpu, card):
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=list(p), max_new=3))
+    worst = 0.0
+    while cpu.queue or any(r is not None for r in cpu.slots):
+        a, b = cpu.step(), card.step()
+        worst = max(worst, float((b.cpu() - a).abs().max()))
+        if not torch.allclose(b.cpu(), a, atol=1e-4, rtol=1e-4) \
+                or cpu.slot_pos.tolist() != card.slot_pos.tolist():
+            raise AssertionError(f"LM engine on the card != on the CPU at "
+                                 f"step {cpu.steps}")
+    if [(r.rid, r.out) for r in cpu.completed] != \
+            [(r.rid, r.out) for r in card.completed] or \
+            len(card.completed) != len(prompts):
+        raise AssertionError("LM engine on the card: tokens differ from the "
+                             "CPU's")
+    for k in ("k", "v"):
+        if not torch.allclose(card.kv[k].cpu(), cpu.kv[k], atol=1e-5,
+                              rtol=1e-5):
+            raise AssertionError(f"LM engine on the card: {k} pool differs")
+    log(f"lm parity (tiny config, {cpu.steps} steps, {len(prompts)} "
+        f"requests): card == CPU, equal tokens, logits within {worst}")
+
+
+def lm_phase(dev, card: str, par: Parity) -> dict:
+    """qwen3-4b at full width serving LM_REQUESTS requests through the
+    port's ``ServeEngine``, with the K1/K6 launch counts read around exactly
+    that run; every K6 launch of its first LM_HELD_STEPS steps held, every
+    translation held to the host index, the step's split timed on the host
+    clock (its device work ends in a synchronize), the reference's
+    empty-slot defect counted.  The checks sit outside the step times."""
+    import torch
+    from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import paged_model
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the LM path must run full float32")
+    cfg = _lm_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServeEngine(cfg, model, device=dev, **LM_ENGINE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm set-up: {LM_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+        f"of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{n_params} float32 parameters, page pool "
+        f"{2 * eng.kv['k'].numel() * 4} bytes, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(LM_REQUESTS):
+        n = int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
+        reqs.append(Request(rid=i, prompt=rng.integers(
+            1, cfg.vocab_size, n).tolist(), max_new=LM_MAX_NEW))
+        eng.submit(reqs[-1])
+
+    acc = dict.fromkeys(("host", "mirror", "translate", "decode", "head",
+                         "check"), 0.0)
+    defect = {"empty_slot_steps": 0, "empty_slot_writes": 0,
+              "writes_on_live_pages": 0}
+    table, page = eng.table, eng.page_size
+
+    def timed(name, fn, sync=False):
+        def run(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t
+            return out
+        return run
+
+    translate = table.translate_batch
+    held = {"translations": 0, "keys": 0}
+
+    def checked_translate(seqs, lps):
+        m0 = acc["mirror"]
+        t = time.perf_counter()
+        out = translate(seqs, lps)
+        torch.cuda.synchronize()
+        acc["translate"] += time.perf_counter() - t - (acc["mirror"] - m0)
+        t = time.perf_counter()
+        got = out.cpu().numpy()
+        keys = (seqs.astype(np.uint64) << np.uint64(20)) \
+            | lps.astype(np.uint64)
+        exp = [table.index.lookup(int(k)) for k in keys]
+        exp = np.array([-1 if e is None else e for e in exp], np.int64)
+        if not np.array_equal(got, exp):
+            raise AssertionError(f"translate_batch (K1) != the host index "
+                                 f"at {int((got != exp).sum())} keys")
+        held["translations"] += 1
+        held["keys"] += keys.size
+        # the reference's defect: an empty slot decodes into the page its
+        # row translates to (-1 -> page 0); count its k/v writes (one pair
+        # a layer) and those that land on a page a live sequence owns
+        tables = np.maximum(got, 0).reshape(len(eng.slots), -1)
+        owned = {p for pages in table._pages_of.values() for _, p in pages}
+        empty = [s for s, r in enumerate(eng.slots) if r is None]
+        defect["empty_slot_steps"] += bool(empty)
+        for s in empty:
+            lp = max(int(eng.slot_pos[s]) + 1, 0) // page
+            defect["empty_slot_writes"] += cfg.n_layers
+            if lp < tables.shape[1] and int(tables[s, lp]) in owned:
+                defect["writes_on_live_pages"] += cfg.n_layers
+        acc["check"] += time.perf_counter() - t
+        return out
+
+    orig = (paged_model._head, engine_mod.paged_decode_step)
+    eng._admit = timed("host", eng._admit)
+    eng._ensure_pages = timed("host", eng._ensure_pages)
+    table.mirror = timed("mirror", table.mirror)
+    table.translate_batch = checked_translate
+    paged_model._head = timed("head", orig[0], sync=True)
+    engine_mod.paged_decode_step = timed("decode", orig[1], sync=True)
+    fused_lookup.launches = 0
+    paged_attention.launches = 0
+    step_s = []
+    try:
+        while eng.queue or any(r is not None for r in eng.slots):
+            trace = [] if eng.steps < LM_HELD_STEPS else None
+            c0 = acc["check"]
+            t = time.perf_counter()
+            logits = eng.step(trace=trace)
+            step_s.append(time.perf_counter() - t - (acc["check"] - c0))
+            if trace is not None:
+                if len(trace) != cfg.n_layers:
+                    raise AssertionError("K6 was not launched once a layer")
+                for args, out in trace:
+                    par.close("paged_attention", out,
+                              paged_attention_plain(*args))
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"non-finite logits at step {eng.steps}")
+    finally:
+        paged_model._head, engine_mod.paged_decode_step = orig
+        for name in ("_admit", "_ensure_pages"):
+            delattr(eng, name)
+        for name in ("mirror", "translate_batch"):
+            delattr(table, name)
+    launches = {"fused_lookup": fused_lookup.launches,
+                "paged_attention": paged_attention.launches}
+    peak = int(torch.cuda.max_memory_allocated())
+
+    # every request done with LM_MAX_NEW tokens, every page reclaimed, each
+    # kernel of the path launched (K1 once a step, K6 once a layer a step)
+    steps = eng.steps
+    if len(eng.completed) != LM_REQUESTS or any(
+            len(r.out) != LM_MAX_NEW for r in reqs):
+        raise AssertionError("lm: a request did not complete with "
+                             f"{LM_MAX_NEW} tokens")
+    if eng.pool_pages.n_free != LM_ENGINE["n_pages"]:
+        raise AssertionError(f"lm: {LM_ENGINE['n_pages'] - eng.pool_pages.n_free}"
+                             " pages not reclaimed")
+    if launches["fused_lookup"] != steps \
+            or launches["paged_attention"] != steps * cfg.n_layers:
+        raise AssertionError(f"lm: launches {launches} over {steps} steps")
+    step_s = np.asarray(step_s)
+    serve_s = float(step_s.sum())
+    fed = sum(len(r.prompt) + len(r.out) - 1 for r in reqs)
+    gen = sum(len(r.out) for r in reqs)
+    split = {"host": acc["host"] + acc["mirror"],
+             "translate": acc["translate"],
+             "layers": acc["decode"] - acc["head"], "head": acc["head"]}
+    split["other"] = serve_s - sum(split.values())
+    out = {
+        "card": card, "arch": LM_ARCH, "params": n_params,
+        "requests": LM_REQUESTS, "steps": steps,
+        "tokens_fed": fed, "tokens_generated": gen,
+        "slot_use": fed / (steps * LM_ENGINE["slots"]),
+        "tokens_per_s": fed / serve_s,
+        "generated_tokens_per_s": gen / serve_s,
+        "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+        "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+        "first_step_ms": float(step_s[0]) * 1e3,
+        "step_split_ms": {k: v / steps * 1e3 for k, v in split.items()},
+        "mirror_host_ms_per_step": acc["mirror"] / steps * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "launches": launches, "k6_launches_held": LM_HELD_STEPS
+        * cfg.n_layers, "translations_held": held,
+        "reference_defect": defect,
+        "checked": "K6 launches of the first steps == plain (f32 1e-5); "
+                   "every translation == the host index; every request "
+                   "complete; every page reclaimed; logits finite",
+    }
+    log("lm serving: " + json.dumps(out))
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"{k} was not launched on the LM path")
+    out["profile"] = lm_profile(eng, card)
+    del eng, model
+    return out
+
+
+def lm_profile(eng, card: str) -> dict:
+    """Device time by kernel over LM_PROFILED_STEPS steady steps of the
+    engine (``torch.profiler``, after the measured run): a fresh batch of
+    LM_PROFILE_PROMPT-token requests fills every slot, LM_PROFILE_WARM
+    steps feed their prompts, the next LM_PROFILED_STEPS are traced; then
+    they run to completion and every page must be back.  The device's busy share is the traced kernels' time
+    over the traced steps' wall time (which the profiler itself slows)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(3)
+    for i in range(LM_ENGINE["slots"]):
+        eng.submit(Request(rid=1000 + i, prompt=rng.integers(
+            1, eng.cfg.vocab_size, LM_PROFILE_PROMPT).tolist(),
+            max_new=LM_MAX_NEW))
+    for _ in range(LM_PROFILE_WARM):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    eng.run(max_steps=eng.steps + 1000)
+    if eng.pool_pages.n_free != LM_ENGINE["n_pages"] or eng.queue:
+        raise AssertionError("lm profile: requests or pages left over")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # the kernels themselves: an operator's row repeats its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in rows)
+    top = sorted(rows, key=dev_us, reverse=True)[:12]
+    n = LM_PROFILED_STEPS
+    out = {"card": card, "steps": n, "wall_ms_per_step": wall / n * 1e3,
+           "device_ms_per_step": total / n / 1e3,
+           "device_busy_share": total / 1e6 / wall,
+           "kernels_per_step": sum(e.count for e in rows) / n,
+           "top_kernels": [{"name": e.key[:90], "calls": e.count // n,
+                            "ms_per_step": dev_us(e) / n / 1e3}
+                           for e in top]}
+    log("lm profile (device time by kernel, per step): " + json.dumps(out))
+    return out
+
+
+def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
+    """K6 alone at a long-context decode shape of qwen3-4b (K6_ROWS rows of
+    2048-4096 tokens, K6_NP pages of 16 a row, a shuffled K6_POOL-page pool
+    of one layer), in float32 and bfloat16: held to its plain version on
+    these inputs and on a copy with a row of length 0 and one of every
+    token, then timed beside its plain version and one PyTorch
+    ``scaled_dot_product_attention`` call over the same KV gathered
+    contiguous (the gather is not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    cfg = _lm_cfg()
+    B, H, hk, dh = K6_ROWS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    page, NP = LM_ENGINE["page_size"], K6_NP
+    rng = np.random.default_rng(21)
+    table = torch.from_numpy(rng.permutation(K6_POOL)[:B * NP].reshape(
+        B, NP).astype(np.int32)).to(dev)
+    lens_np = rng.integers(2048, 4097, B).astype(np.int32)
+    lens = torch.from_numpy(lens_np).to(dev)
+    edge = lens.clone()
+    edge[0], edge[1] = 0, NP * page
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    S = NP * page
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]
+            )[:, None, None, :]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, H, dh), generator=gen, device=dev).to(dt)
+        kp = torch.randn((K6_POOL, page, hk, dh), generator=gen,
+                         device=dev).to(dt)
+        vp = torch.randn((K6_POOL, page, hk, dh), generator=gen,
+                         device=dev).to(dt)
+        for ln in (lens, edge):
+            par.close("paged_attention", paged_attention(table, ln, q, kp, vp),
+                      paged_attention_plain(table, ln, q, kp, vp))
+        kc = kp[table.reshape(-1).long()].reshape(B, S, hk, dh).transpose(
+            1, 2).contiguous()
+        vc = vp[table.reshape(-1).long()].reshape(B, S, hk, dh).transpose(
+            1, 2).contiguous()
+        qs = q[:, :, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((sdpa()[:, :, 0].float()
+                         - paged_attention(table, lens, q, kp, vp).float()
+                         ).abs().max())
+        km = time_cuda(lambda: paged_attention(table, lens, q, kp, vp), 50,
+                       flush)
+        pm = time_cuda(lambda: paged_attention_plain(table, lens, q, kp, vp),
+                       5, flush)
+        lm = time_cuda(sdpa, 50, flush)
+        elt = q.element_size()
+        # bytes K6 must move: the live tokens' K and V of the row's kv
+        # heads, q in and out, the table and lengths
+        nbytes = int(lens_np.sum()) * hk * dh * elt * 2 + 2 * q.numel() * elt \
+            + table.numel() * 4 + B * 4
+        name = str(dt).removeprefix("torch.")
+        out[name] = {"ms": float(np.median(km)), "mean_ms": float(km.mean()),
+                     "plain_ms": float(np.median(pm)),
+                     "library_ms": float(np.median(lm)),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bytes": nbytes, "sdpa_max_abs_diff": lib_err}
+        del q, kp, vp, kc, vc
+    log(f"k6 alone on {card}: B={B} H={H} Hkv={hk} Dh={dh} page={page} "
+        f"NP={NP} pool={K6_POOL} pages, lengths {int(lens_np.min())}-"
+        f"{int(lens_np.max())} (sum {int(lens_np.sum())}): "
+        + json.dumps(out))
+    f32 = out["float32"]
+    return {"name": "paged_attention", "route": "cuda", "source": K6_SOURCE,
+            "replaces": K6_REPLACES, "launches": launches,
+            "max_abs_err": par.err["paged_attention"],
+            "ms": f32["ms"], "mean_ms": f32["mean_ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": "bytes", "library_ms": f32["library_ms"],
+            "parity": "float32 within 1e-5 (bfloat16 within 3e-2)",
+            "max_abs_err_bf16": par.err_bf16["paged_attention"],
+            "bf16": out["bfloat16"], "cases": par.cases["paged_attention"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -818,16 +1236,27 @@ def main() -> int:
     compaction_phase(dev)
     kernels = measure(mp, par, dev)
     kernels += staged_phase(mp, par, dev, card)
+    s = mp["summary"]
+    del mp                          # free the index path's tensors
+    torch.cuda.empty_cache()
+    lm_parity(dev)
+    lm = lm_phase(dev, card, par)
+    torch.cuda.empty_cache()
+    kernels.append(k6_timing(dev, card, par,
+                             lm["launches"]["paged_attention"]))
     for k in kernels:
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
             f"time, stream held (mean "
             f"{k['mean_ms']} ms; plain median {k['plain_ms']} ms,"
             f" bound {k['bound_ms']} ms by {k['bound_by']}), "
             f"{k['launches']} launches on the main path")
-    s = mp["summary"]
     log(f"end to end on {card}: {s['steps_per_s']} steps/s, p99 step "
         f"{s['p99_step_ms']} ms, peak device memory "
-        f"{s['max_memory_allocated_bytes']} bytes; total "
+        f"{s['max_memory_allocated_bytes']} bytes")
+    log(f"lm end to end on {card}: {lm['tokens_per_s']} tokens/s "
+        f"({lm['generated_tokens_per_s']} generated), p50 step "
+        f"{lm['p50_step_ms']} ms, p99 step {lm['p99_step_ms']} ms, peak "
+        f"device memory {lm['max_memory_allocated_bytes']} bytes; total "
         f"{time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

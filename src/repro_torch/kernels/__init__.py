@@ -6,7 +6,8 @@ version in its ``ops.py`` (the CUDA sources live in ``../csrc``):
 * ``overlay_probe`` (K3) — the overlay's verdict per query;
 * ``leaf_search``   (K4) — one row's rank search per query;
 * ``inner_probe``   (K5) — one inner-level resolve per query, and the staged
-  block-at-a-time read ``inner_probe_lookup`` built from K5 and K4.
+  block-at-a-time read ``inner_probe_lookup`` built from K5 and K4;
+* ``paged_attention`` (K6) — one GQA decode step over the paged KV pool.
 
 Importing this package builds nothing: a kernel is compiled at its first
 launch (``_build``)."""
@@ -15,7 +16,9 @@ from .inner_probe.ops import ProbeIndex, inner_probe_lookup
 from .leaf_search.ops import leaf_search
 from .overlay_merge.ops import merge_overlay_pack_torch, overlay_merge
 from .overlay_probe.ops import overlay_probe
+from .paged_attention.ops import paged_attention, paged_attention_plain
 
 __all__ = ["fused_lookup", "lookup_plain", "merge_overlay_pack_torch",
            "overlay_merge", "ProbeIndex", "inner_probe_lookup",
-           "leaf_search", "overlay_probe"]
+           "leaf_search", "overlay_probe", "paged_attention",
+           "paged_attention_plain"]

@@ -1,7 +1,8 @@
 """Card-only tests: each hand-written CUDA kernel == its plain PyTorch
-version on the same tensors, exactly; the engine on the card == the engine
-on the CPU, request for request; the staged read on the card == on the
-CPU.
+version on the same tensors, exactly (K6 ``paged_attention`` within float
+tolerances); the engine on the card == the engine on the CPU, request for
+request; the staged read on the card == on the CPU; the LM ``ServeEngine``
+on the card == on the CPU, token for token.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports only the port, so it runs
@@ -22,6 +23,7 @@ from repro_torch.kernels.inner_probe import ops as k5
 from repro_torch.kernels.leaf_search import ops as k4
 from repro_torch.kernels.overlay_merge import ops as k2
 from repro_torch.kernels.overlay_probe import ops as k3
+from repro_torch.kernels.paged_attention import ops as k6
 from repro_torch.serving import IndexEngine
 
 pytestmark = pytest.mark.gpu
@@ -297,3 +299,113 @@ def test_staged_read_on_card_matches_cpu(cuda):
                                           max(di.max_inner_height, 3))
     assert torch.equal(found, k1_found)
     assert torch.equal(torch.where(found, pay, 0), k1_pay)
+
+
+# (B, H, Hkv, Dh, page, P, NP): the reference's three geometries
+# (test_kernels.py:144-148), then qwen3-4b's decode geometry (32 heads over
+# 8 kv heads of 128, pages of 16, 32 pages a row, 8 slots)
+K6_GEOMS = [(4, 8, 2, 64, 16, 64, 8), (2, 16, 16, 128, 64, 32, 4),
+            (1, 4, 1, 32, 8, 16, 3), (8, 32, 8, 128, 16, 512, 32)]
+# float32: 1e-5, the online softmax against the full one; bfloat16: 3e-2,
+# the reference's own (both round one float32 result to bf16)
+K6_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _k6_inputs(geom, dtype, dev, seed):
+    B, H, hk, dh, page, P, NP = geom
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, H, dh), generator=g).to(dev, dtype)
+    kp = torch.randn((P, page, hk, dh), generator=g).to(dev, dtype)
+    vp = torch.randn((P, page, hk, dh), generator=g).to(dev, dtype)
+    table = torch.randint(0, P, (B, NP), generator=g, dtype=torch.int32)
+    lens = torch.randint(1, NP * page, (B,), generator=g, dtype=torch.int32)
+    lens[0] = 0                                   # every logit -1e30
+    lens[-1] = NP * page                          # every token live
+    return table.to(dev), lens.to(dev), q, kp, vp
+
+
+def _k6_close(got, exp):
+    torch.cuda.synchronize()
+    tol = K6_TOL[got.dtype]
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", K6_GEOMS, ids=["gqa", "mha", "mqa",
+                                                "qwen3-4b"])
+def test_paged_attention_kernel_matches_plain(cuda, geom, dtype):
+    args = _k6_inputs(geom, dtype, cuda, seed=geom[0] * geom[1])
+    n = k6.paged_attention.launches
+    got = k6.paged_attention(*args)
+    assert k6.paged_attention.launches == n + 1
+    _k6_close(got, k6.paged_attention_plain(*args))
+
+
+def test_paged_attention_on_pool_views(cuda):
+    """K6 reads a layer's view of the (L, P, page, Hkv, Dh) pool without a
+    copy, and pages strided further apart ((P, L, ...) layout); out-of-range
+    page ids are clamped as in the plain version."""
+    B, H, hk, dh, page, P, NP = 3, 8, 2, 64, 16, 20, 5
+    table, lens, q, _, _ = _k6_inputs((B, H, hk, dh, page, P, NP),
+                                      torch.float32, cuda, seed=4)
+    table[1, 2], table[2, 0] = -3, P + 7
+    pool = torch.randn((4, P, page, hk, dh), device=cuda)
+    for kp in (pool[2], pool.transpose(0, 1).contiguous()[:, 1]):
+        got = k6.paged_attention(table, lens, q, kp, kp)
+        _k6_close(got, k6.paged_attention_plain(table, lens, q, kp, kp))
+    with pytest.raises(ValueError):
+        k6.paged_attention(table, lens, q, pool[2].transpose(1, 2), pool[2])
+
+
+def _lm_pair(cuda):
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(
+        get_config("qwen3-4b").reduced(), n_layers=2, d_model=64, n_heads=2,
+        n_kv_heads=2, head_dim=32, d_ff=128, vocab_size=128,
+        compute_dtype="float32")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, copy.deepcopy(model).to(cuda)
+
+
+@pytest.mark.parametrize("trace", ["churn", "empty-slot"])
+def test_serve_engine_on_card_matches_cpu(cuda, trace):
+    """The LM engine on the card (K1 translations, K6 attention) == on the
+    CPU (their plain versions): equal tokens, state and page pools, logits
+    within 1e-4 at every step."""
+    from repro_torch.serving import Request, ServeEngine
+    cfg, cpu_model, card_model = _lm_pair(cuda)
+    if trace == "churn":
+        kw = dict(slots=2, page_size=8, n_pages=64, max_pages_per_seq=8)
+        rng = np.random.default_rng(1)
+        reqs = [(i, rng.integers(1, 100, 4).tolist(), 3) for i in range(7)]
+    else:
+        kw = dict(slots=2, page_size=4, n_pages=16, max_pages_per_seq=4)
+        reqs = [(0, [1, 2, 3], 10)]
+    engines = [ServeEngine(cfg, cpu_model, device="cpu", **kw),
+               ServeEngine(cfg, card_model, device=cuda, **kw)]
+    for eng in engines:
+        for rid, prompt, max_new in reqs:
+            eng.submit(Request(rid=rid, prompt=list(prompt), max_new=max_new))
+    n1, n6 = k1.fused_lookup.launches, k6.paged_attention.launches
+    steps = 0
+    while engines[0].queue or any(r is not None for r in engines[0].slots):
+        a, b = (e.step() for e in engines)
+        steps += 1
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+        for e in engines:
+            assert e.steps == steps
+        assert [(r.rid, r.out) for r in engines[0].completed] == \
+            [(r.rid, r.out) for r in engines[1].completed]
+        assert engines[0].slot_pos.tolist() == engines[1].slot_pos.tolist()
+    assert k1.fused_lookup.launches >= n1 + steps
+    assert k6.paged_attention.launches == n6 + steps * cfg.n_layers
+    for k in ("k", "v"):
+        torch.testing.assert_close(engines[1].kv[k].cpu(), engines[0].kv[k],
+                                   atol=1e-5, rtol=1e-5)
+    assert engines[0].pool_pages.free == engines[1].pool_pages.free
+    assert len(engines[1].completed) == len(reqs)

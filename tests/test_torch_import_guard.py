@@ -33,7 +33,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 25, out.stdout   # K1-K5 modules included
+    assert int(count) >= 40, out.stdout   # K1-K6 and the LM path included
     assert bad == "[]", out.stdout
 
 
@@ -67,6 +67,7 @@ def test_cuda_kernels_refuse_without_a_card():
     from repro_torch.kernels.leaf_search.ops import leaf_search
     from repro_torch.kernels.overlay_merge.ops import overlay_merge
     from repro_torch.kernels.overlay_probe.ops import overlay_probe
+    from repro_torch.kernels.paged_attention.ops import paged_attention
     q = torch.zeros(4, dtype=torch.int64, device="meta")
     pack = torch.zeros((3, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
@@ -79,3 +80,35 @@ def test_cuda_kernels_refuse_without_a_card():
         leaf_search(pack, pack, q.to(torch.int32), q)
     with pytest.raises(ValueError):
         probe_level({}, q.to(torch.int32), q)
+    qa = torch.zeros((2, 4, 8), device="meta")
+    pages = torch.zeros((3, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError):
+        paged_attention(torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+                        torch.ones(2, dtype=torch.int32, device="meta"), qa,
+                        pages, pages)
+
+
+def test_serve_engine_runs_on_the_card_unless_told_otherwise():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import LearnedPageTable, PagePool, Request
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), n_layers=1,
+                              d_model=32, n_heads=2, n_kv_heads=1,
+                              head_dim=16, d_ff=64, vocab_size=64)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if torch.cuda.is_available():
+        assert ServeEngine(cfg, model.to("cuda")).device.type == "cuda"
+        model = model.cpu()
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(cfg, model)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LearnedPageTable(PagePool(4))
+    eng = ServeEngine(cfg, model, slots=2, page_size=4, n_pages=8,
+                      device="cpu")
+    eng.submit(Request(rid=0, prompt=[1, 2], max_new=2))
+    assert [len(r.out) for r in eng.run()] == [2]
+    assert eng.kv["k"].device.type == "cpu"
