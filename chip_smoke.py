@@ -58,15 +58,17 @@ printed):
    empty-slot defect (ROADMAP Queue 3) counted; tokens/s, step times and
    their split into host work, translation, layers and head, peak memory;
    then, with a fresh batch in every slot, device time by kernel over 8
-   steady steps at rows of 89-96 tokens (``torch.profiler``) and the
-   device's busy share;
-8. K6 alone at a long-context decode shape (16 rows of 2048-4096 tokens,
-   a shuffled 4096-page pool of one qwen3-4b layer, float32 and bfloat16):
-   held to its plain version (a row of length 0 and one of every token
-   included), timed like K1 beside its plain version and
-   ``scaled_dot_product_attention`` on the same KV gathered contiguous
-   (the gather not timed); then the ``kernels`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   steady steps at rows of 89-96 tokens (``torch.profiler``; K6's split
+   and combine kernels summed) and the device's busy share;
+8. K6 alone at the served decode shape (8 rows of 89-96 tokens, 32 pages
+   a row, a shuffled 512-page pool of one qwen3-4b layer) and at a
+   long-context one (16 rows of 2048-4096 tokens, 256 pages a row, a
+   shuffled 4096-page pool), float32 and bfloat16: held to its plain
+   version (a row of length 0 and one of every token included), timed like
+   K1 beside its plain version and ``scaled_dot_product_attention`` on the
+   same KV gathered contiguous (the gather not timed); then the
+   ``kernels`` line (K6's long-context numbers, its served ones under
+   ``served``) and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without CUDA and when run outside a checkout of the
 repository (it imports the port from ``src/`` beside it).
@@ -119,8 +121,10 @@ LM_PROFILED_STEPS = 8            # steps traced by torch.profiler
 # the traced steps' rows hold 89-96 tokens, about the served run's mean
 LM_PROFILE_PROMPT, LM_PROFILE_WARM = 128, 88
 K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-# K6 alone: 16 rows of 2048-4096 tokens over a shuffled one-layer pool
+# K6 alone: 16 rows of 2048-4096 tokens over a shuffled one-layer pool,
+# and the served shape: 8 rows of 89-96 tokens over the engine's pool
 K6_ROWS, K6_NP, K6_POOL = 16, 256, 4096
+K6_SERVED_ROWS, K6_SERVED_LENS = 8, (89, 96)
 
 
 def log(*a) -> None:
@@ -1120,10 +1124,14 @@ def lm_profile(eng, card: str) -> dict:
     total = sum(dev_us(e) for e in rows)
     top = sorted(rows, key=dev_us, reverse=True)[:12]
     n = LM_PROFILED_STEPS
+    # K6: its split and combine kernels (one C call a layer)
+    k6 = [e for e in rows if "paged_attention" in e.key]
     out = {"card": card, "steps": n, "wall_ms_per_step": wall / n * 1e3,
            "device_ms_per_step": total / n / 1e3,
            "device_busy_share": total / 1e6 / wall,
            "kernels_per_step": sum(e.count for e in rows) / n,
+           "k6_ms_per_step": sum(dev_us(e) for e in k6) / n / 1e3,
+           "k6_kernels_per_step": sum(e.count for e in k6) / n,
            "top_kernels": [{"name": e.key[:90], "calls": e.count // n,
                             "ms_per_step": dev_us(e) / n / 1e3}
                            for e in top]}
@@ -1131,39 +1139,42 @@ def lm_profile(eng, card: str) -> dict:
     return out
 
 
-def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
-    """K6 alone at a long-context decode shape of qwen3-4b (K6_ROWS rows of
-    2048-4096 tokens, K6_NP pages of 16 a row, a shuffled K6_POOL-page pool
-    of one layer), in float32 and bfloat16: held to its plain version on
-    these inputs and on a copy with a row of length 0 and one of every
-    token, then timed beside its plain version and one PyTorch
-    ``scaled_dot_product_attention`` call over the same KV gathered
-    contiguous (the gather is not timed)."""
+def _k6_shape(dev, par: Parity, B: int, NP: int, pool: int, lo: int,
+              hi: int, seed: int, flush) -> dict:
+    """K6 alone on ``B`` rows of ``lo``-``hi`` tokens, ``NP`` pages of 16 a
+    row from a shuffled ``pool``-page pool of one qwen3-4b layer, float32
+    and bfloat16: held to its plain version on these inputs and on a copy
+    with a row of length 0 and one of every token, then timed beside its
+    plain version and one ``scaled_dot_product_attention`` call over the
+    same KV gathered contiguous (the gather is not timed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (
-        paged_attention, paged_attention_plain)
+        _split_plan, paged_attention, paged_attention_plain)
     cfg = _lm_cfg()
-    B, H, hk, dh = K6_ROWS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    page, NP = LM_ENGINE["page_size"], K6_NP
-    rng = np.random.default_rng(21)
-    table = torch.from_numpy(rng.permutation(K6_POOL)[:B * NP].reshape(
+    H, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    page = LM_ENGINE["page_size"]
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.permutation(pool)[:B * NP].reshape(
         B, NP).astype(np.int32)).to(dev)
-    lens_np = rng.integers(2048, 4097, B).astype(np.int32)
+    lens_np = rng.integers(lo, hi + 1, B).astype(np.int32)
     lens = torch.from_numpy(lens_np).to(dev)
     edge = lens.clone()
     edge[0], edge[1] = 0, NP * page
-    gen = torch.Generator(device=dev).manual_seed(21)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     S = NP * page
     mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]
             )[:, None, None, :]
-    out = {}
+    pps, n_splits = _split_plan(B, hk, NP, page)
+    out = {"rows": B, "pages_a_row": NP, "pool_pages": pool,
+           "lengths": [int(lens_np.min()), int(lens_np.max())],
+           "tokens": int(lens_np.sum()), "pages_per_split": pps,
+           "n_splits": n_splits}
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn((B, H, dh), generator=gen, device=dev).to(dt)
-        kp = torch.randn((K6_POOL, page, hk, dh), generator=gen,
+        kp = torch.randn((pool, page, hk, dh), generator=gen,
                          device=dev).to(dt)
-        vp = torch.randn((K6_POOL, page, hk, dh), generator=gen,
+        vp = torch.randn((pool, page, hk, dh), generator=gen,
                          device=dev).to(dt)
         for ln in (lens, edge):
             par.close("paged_attention", paged_attention(table, ln, q, kp, vp),
@@ -1197,10 +1208,23 @@ def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "bytes": nbytes, "sdpa_max_abs_diff": lib_err}
         del q, kp, vp, kc, vc
-    log(f"k6 alone on {card}: B={B} H={H} Hkv={hk} Dh={dh} page={page} "
-        f"NP={NP} pool={K6_POOL} pages, lengths {int(lens_np.min())}-"
-        f"{int(lens_np.max())} (sum {int(lens_np.sum())}): "
-        + json.dumps(out))
+    return out
+
+
+def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
+    """K6 alone at the served decode shape of the LM path (K6_SERVED_ROWS
+    rows of 89-96 tokens over the engine's 32 pages a row and 512-page
+    pool) and at a long-context one (K6_ROWS rows of 2048-4096 tokens,
+    K6_NP pages a row, a K6_POOL-page pool): each held, then timed
+    (``_k6_shape``).  The long-context float32 numbers head the entry."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    served = _k6_shape(dev, par, K6_SERVED_ROWS, LM_ENGINE[
+        "max_pages_per_seq"], LM_ENGINE["n_pages"], *K6_SERVED_LENS, 22,
+        flush)
+    log(f"k6 alone on {card}, served shape: " + json.dumps(served))
+    out = _k6_shape(dev, par, K6_ROWS, K6_NP, K6_POOL, 2048, 4096, 21, flush)
+    log(f"k6 alone on {card}, long context: " + json.dumps(out))
     f32 = out["float32"]
     return {"name": "paged_attention", "route": "cuda", "source": K6_SOURCE,
             "replaces": K6_REPLACES, "launches": launches,
@@ -1210,7 +1234,8 @@ def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
             "bound_by": "bytes", "library_ms": f32["library_ms"],
             "parity": "float32 within 1e-5 (bfloat16 within 3e-2)",
             "max_abs_err_bf16": par.err_bf16["paged_attention"],
-            "bf16": out["bfloat16"], "cases": par.cases["paged_attention"]}
+            "bf16": out["bfloat16"], "served": served,
+            "cases": par.cases["paged_attention"]}
 
 
 def main() -> int:

@@ -343,6 +343,65 @@ def test_paged_attention_kernel_matches_plain(cuda, geom, dtype):
     _k6_close(got, k6.paged_attention_plain(*args))
 
 
+def _k6_split_case(name, dtype, dev):
+    """K6 inputs that force several splits of ``_split_plan`` (and empty
+    ones past a row's walk): qwen3-4b's heads (32 over 8 kv heads of 128,
+    pages of 16) unless named otherwise."""
+    H, hk, dh, page = {"gemma2": (16, 8, 256, 16),     # 2 heads a block
+                       "group16": (32, 2, 64, 16)}.get(  # 2 blocks a group
+                           name, (32, 8, 128, 16))
+    g = torch.Generator(device="cpu").manual_seed(len(name))
+    if name == "long":            # NP = 256, lengths 2048-4096
+        B, NP, P = 4, 256, 1024
+        lens = torch.randint(2048, 4097, (B,), generator=g)
+        table = torch.randperm(P, generator=g)[:B * NP].reshape(B, NP)
+    else:
+        B, NP, P = 6, 32, 96
+        pps, _ = k6._split_plan(B, hk, NP, page)
+        edge = 3 * pps * page     # the third split's end
+        lens = torch.tensor({
+            "boundary": [edge - 1, edge, edge + 1, pps * page, 1, 17],
+            "one": [1, 1, 2, 15, 16, 17],
+            "empty": [0, 0, 5, 300, NP * page, 1],
+            "shared": [200, 201, 64, 512, 33, 0],
+            "gemma2": [0, 1, edge, 511, 97, 250],
+            "group16": [0, 1, edge + 1, 512, 160, 33]}[name])
+        table = torch.randint(0, P, (B, NP), generator=g)
+        if name == "shared":      # shared prefixes and pages across rows
+            table[1, :13] = table[0, :13]
+            table[2, 4:] = table[3, :NP - 4]
+            table[5, ::2] = table[0, 7]
+    assert k6._split_plan(B, hk, NP, page)[1] > 1
+    q = torch.randn((B, H, dh), generator=g).to(dev, dtype)
+    kp = torch.randn((P, page, hk, dh), generator=g).to(dev, dtype)
+    vp = torch.randn((P, page, hk, dh), generator=g).to(dev, dtype)
+    return (table.to(dev, torch.int32), lens.to(dev, torch.int32), q, kp,
+            vp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["long", "boundary", "one", "empty",
+                                  "shared", "gemma2", "group16"])
+def test_paged_attention_splits_match_plain(cuda, name, dtype):
+    """Several splits a row, empty splits past the walk, lengths at a
+    split's boundary and either side, length 1, a length-0 row whose table
+    spans every split, pages shared between rows; then gemma2-9b's heads
+    (Dh 256, 2 query heads a kv head) and a group of 16 query heads."""
+    args = _k6_split_case(name, dtype, cuda)
+    n = k6.paged_attention.launches
+    got = k6.paged_attention(*args)
+    assert k6.paged_attention.launches == n + 1
+    _k6_close(got, k6.paged_attention_plain(*args))
+
+
+def test_paged_attention_rejects_other_head_dims(cuda):
+    table, lens, q, kp, vp = _k6_inputs((2, 4, 2, 48, 8, 8, 2),
+                                        torch.float32, cuda, seed=3)
+    with pytest.raises(ValueError):
+        k6.paged_attention(table, lens, q, kp, vp)
+
+
 def test_paged_attention_on_pool_views(cuda):
     """K6 reads a layer's view of the (L, P, page, Hkv, Dh) pool without a
     copy, and pages strided further apart ((P, L, ...) layout); out-of-range
