@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the AULID serving engine on one CUDA card.
 
-    python3 chip_smoke.py            # 200M keys, 50 steps, not cut
+    python3 chip_smoke.py      # 200M keys, 50 steps (30 in 8 shards), not cut
 
 Phases (any failure raises, so the exit code is non-zero and no result is
 printed):
@@ -19,7 +19,12 @@ printed):
    staged read ``inner_probe_lookup`` against K1 on found and found
    payloads; K4 on full rows (rank == C) and K3 on a full pack; K2
    ``overlay_merge`` on random packs (empty, all-overlap, tombstones, cap
-   growth, Ca = 2^24 with Cb = 512);
+   growth, Ca = 2^24 with Cb = 512); K1's shard route
+   (``fused_lookup_sharded``) on stacks of the same datasets (200k keys in
+   1, 3 and 8 shards and in 5 shards padded to 8 slots; the 20M-key osm
+   mirror in 8 shards), queries at every bound +- 1, without and with an
+   overlay; K2's stacked form (``overlay_merge_stacked``) on 8 rows of
+   every kind and on 8 rows of Ca = cap_out = 2^21 with Cb = 64, timed;
 3. the main path: ``IndexEngine`` serving 200M covid-like keys (payload =
    key + 1, default 4 KB geometry — the paper's evaluation size) for 50
    steps of 8192 gets (10% absent), 512 writes (60% new-key inserts, 30%
@@ -28,11 +33,18 @@ printed):
    launch counts are read around exactly this run; then a few more steps
    of the same traffic, timed phase by phase (the step's breakdown);
 4. compaction on the card: 1M keys at gamma = 0.001, synchronous and
-   background compactions, results checked the same way;
+   background compactions, results checked the same way; then the
+   ``ShardedIndexEngine``'s maintenance at 1M keys in 8 shards, sync and
+   async answering alike: shard-local compaction (only the hot shard
+   compacts, cold shards keep their mirror epochs) and online
+   repartitioning (drift inserts until the load monitor splits, then a
+   merge forced by hand), with no compaction, split or merge build
+   failed;
 5. the numbers: K1/K2 held once more against their plain versions on the
    main path's own tensors, then both timed with CUDA events at those
    shapes (median launch; L2 flushed and the stream held before each
-   launch, so ``ms`` is the device's time alone), their bytes
+   launch, long enough for a plain version's hundreds of launches too, so
+   ``ms`` and ``plain_ms`` are the device's time alone), their bytes
    bounds, steps/s, p99 step time and peak device memory, each beside the
    card's name and power limit;
 6. the staged read on the main path's mirror and served overlay pack: the
@@ -44,6 +56,18 @@ printed):
    kernel timed like K1/K2 (``torch.searchsorted`` beside K3), and the
    whole staged batch timed on the host clock beside K1's read of the same
    batch;
+6a. the sharded path, after the monolithic engine is freed: the main
+   path's 200M keys in 8 range shards (``partition_bulkload``, default
+   geometry) served by ``ShardedIndexEngine`` (gamma 0.05) for 30 steps of
+   8192 gets (uniform, 10% absent), 512 writes (60% fresh inserts in the
+   hot shard 4's range, 30% updates and 10% deletes over all shards) and
+   16 scans of 100 (8 starting among the last 50 keys up to a bound), every
+   result checked against the oracle, with the launch counts of K1's shard
+   route, K2 and K2's stacked form read around exactly this run (the first
+   two launched, the stacked form not: one card keeps one flat pack),
+   every shard served and no background build failed; the step's
+   breakdown and its device time (``torch.profiler``); K1's shard route
+   held and timed on the run's own tensors beside the monolithic K1;
 7. the LM serving path, after the index path's tensors are freed: the LM
    ``ServeEngine`` on the card held to the same engine on the CPU on a tiny
    config (equal tokens, logits within 1e-4); then qwen3-4b at full width
@@ -68,13 +92,15 @@ printed):
    K1 beside its plain version and ``scaled_dot_product_attention`` on the
    same KV gathered contiguous (the gather not timed); then the
    ``kernels`` line (K6's long-context numbers, its served ones under
-   ``served``) and, last, ``{"ok": true, "device": {...}}``.
+   ``served``; K1's shard route under K1's ``sharded``, K2's stacked form
+   under K2's ``stacked``) and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without CUDA and when run outside a checkout of the
 repository (it imports the port from ``src/`` beside it).
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -97,6 +123,8 @@ K1_MIRRORS = [(d, 200_000, GEOM_512B, "512b")
 K1_SOURCE = "src/repro_torch/csrc/fused_lookup.cu"
 K2_SOURCE = "src/repro_torch/csrc/overlay_merge.cu"
 K1_REPLACES = "src/repro/kernels/fused_lookup/fused_lookup.py:296"
+# the cfg.sharded branch of that kernel: the route and per-shard offsets
+K1S_REPLACES = "src/repro/kernels/fused_lookup/fused_lookup.py:140"
 K2_REPLACES = "src/repro/kernels/overlay_merge/overlay_merge.py:108"
 # the staged read's kernels: name -> (source, TPU kernel replaced)
 STAGED = {
@@ -107,6 +135,19 @@ STAGED = {
     "inner_probe": ("src/repro_torch/csrc/inner_probe.cu",
                     "src/repro/kernels/inner_probe/inner_probe.py:86"),
 }
+# K1's shard route and K2's stacked form, held against their plain versions
+# under their own names (they build from K1's and K2's sources)
+FORMS = ("fused_lookup_sharded", "overlay_merge_stacked")
+# K1-sharded parity stacks at 200k keys, 512-B geometry: (live shards,
+# slots); (5, 8) pads 5 live shards with placeholder slots
+K1S_LAYOUTS = [(1, 0), (3, 0), (8, 0)]
+K1S_PADDED = (5, 8)
+K1S_KEYS, K1S_BIG_KEYS = 200_000, 20_000_000
+# the sharded path: the main path's keys in 8 range shards
+# (benchmarks/sharded_serving.py's NUM_SHARDS), its skewed trace scaled up
+SHARDS = 8
+SHARDED_STEPS = 30
+MAINT_KEYS = 1_000_000
 K6_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 K6_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:77"
 KERNELS = ("fused_lookup", "overlay_merge", *STAGED, "paged_attention")
@@ -156,8 +197,8 @@ class Parity:
     main-path launches (the counters are reset before the main path)."""
 
     def __init__(self):
-        self.cases = dict.fromkeys(KERNELS, 0)
-        self.err = dict.fromkeys(KERNELS, 0.0)
+        self.cases = dict.fromkeys(KERNELS + FORMS, 0)
+        self.err = dict.fromkeys(KERNELS + FORMS, 0.0)
         self.err_bf16 = dict.fromkeys(KERNELS, 0.0)
 
     def hold(self, name: str, got, exp) -> None:
@@ -390,6 +431,138 @@ def k2_parity(par: Parity, dev) -> None:
             f"cap_out={cap_out}: exact")
 
 
+def _stacked(keys, shards: int, slots: int, geom: dict, dev):
+    """(partition, stacked mirror, its tensors on ``dev``) of sorted
+    ``keys`` in ``shards`` range shards, padded to ``slots`` slots."""
+    from repro_torch.core import AulidConfig, partition_bulkload
+    from repro_torch.core import lookup as L
+    from repro_torch.core.device_index import (build_device_index,
+                                               stack_device_indexes)
+    from repro_torch.core.workloads import payloads_for
+    part = partition_bulkload(keys, payloads_for(keys), shards,
+                              cfg=AulidConfig(**geom))
+    sdi = stack_device_indexes([build_device_index(sh) for sh in part.shards],
+                               part.bounds, min_shards=slots)
+    return part, sdi, L.stacked_device_arrays(sdi, device=dev)
+
+
+def _bound_queries(keys, bounds, rng, n_hit: int, n_miss: int):
+    """``_queries`` plus every bound and bound +- 1 (placeholder
+    UINT64_MAX bounds included, where +1 does not exist)."""
+    near = [int(b) + d for b in bounds for d in (-1, 0, 1)
+            if 0 <= int(b) + d <= 2**64 - 1]
+    return np.concatenate([_queries(keys, rng, n_hit, n_miss),
+                           np.array(near, dtype=np.uint64)])
+
+
+def k1_sharded_parity(par: Parity, dev) -> None:
+    """K1's shard route == ``lookup_sharded_plain``, exactly, without and
+    with an overlay, on stacks of the K1 parity datasets: the 512-B
+    geometry at 200k keys in 1, 3 and 8 shards and in 5 shards padded to 8
+    slots, and the 20M-key osm 4 KB mirror in 8 shards; routing equals the
+    host partition's and no placeholder slot gets a query."""
+    from repro_torch.core import DeltaOverlay
+    from repro_torch.core import lookup as L
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.core.workloads import make_dataset
+    from repro_torch.kernels.fused_lookup.ops import (fused_lookup_sharded,
+                                                      lookup_sharded_plain)
+    cases = [(d, K1S_KEYS, GEOM_512B, live, slots)
+             for d in ("covid", "planet", "genome", "osm")
+             for live, slots in K1S_LAYOUTS]
+    cases += [("osm", K1S_KEYS, GEOM_512B, *K1S_PADDED),
+              ("osm", K1S_BIG_KEYS, {}, SHARDS, 0)]
+    made = {}
+    for name, n, geom, live, slots in cases:
+        t0 = time.perf_counter()
+        if (name, n) not in made:
+            made = {(name, n): make_dataset(name, n, seed=1)}
+        keys = made[(name, n)]
+        part, sdi, stk = _stacked(keys, live, slots, geom, dev)
+        h = max(sdi.max_inner_height, 3)
+        rng = np.random.default_rng(n + live)
+        ov = DeltaOverlay()
+        for k in rng.integers(0, 2**62, 2000, dtype=np.uint64):
+            ov.record_insert(int(k), int(k) % 1009)
+        for k in rng.choice(keys, 2000):
+            ov.record_insert(int(k), int(k) + 77)
+        for k in rng.choice(keys, 2000):
+            ov.record_delete(int(k))
+        qn = _bound_queries(keys, sdi.bounds, rng, 6000, 2000)
+        q = keys_to_tensor(qn, dev)
+        for o in (None, L.overlay_arrays(ov, dev)):
+            got = fused_lookup_sharded(stk, o, q, h)
+            par.hold("fused_lookup_sharded", got,
+                     lookup_sharded_plain(stk, o, q, h))
+        sid = got[3].cpu().numpy()
+        if not (sid == part.shard_of_batch(qn)).all() or sid.max() >= live:
+            raise AssertionError(f"k1 sharded {name}: route != the host "
+                                 "partition's")
+        tags = np.bincount(sdi.slot_tag.reshape(-1), minlength=5).tolist()
+        log(f"k1 sharded parity {name}-{'4k' if not geom else '512b'} "
+            f"n={n} shards={live} slots={sdi.num_shards} height={h} slot "
+            f"tags={tags} queries={qn.size} (every bound +-1): exact, route "
+            f"== host ({time.perf_counter() - t0:.3f} s)")
+        del stk, sdi, part
+
+
+def k2_stacked_parity(par: Parity, dev, card: str) -> dict:
+    """K2's stacked form == its plain version, exactly: 8 rows of every
+    kind (empty rows, all-overlap, tombstones, cap growth), then 8 rows of
+    Ca = cap_out = 2^21 with Cb = 64 (the bytes of the served flat pack),
+    timed like K1/K2 beside its plain version."""
+    import torch
+    from repro_torch.core.keys import BIASED_MAX
+    from repro_torch.core.lookup import overlay_from_numpy
+    from repro_torch.kernels.overlay_merge.ops import (
+        merge_overlay_stacked_torch, overlay_merge_stacked)
+    rng = np.random.default_rng(4)
+    pool = rng.choice(2**62, size=2_600_000, replace=False).astype(np.uint64)
+
+    def stack(rows):
+        return torch.stack([overlay_from_numpy(r, dev)["ov_pack"]
+                            for r in rows])
+    rows = [(_pack(rng, [], 8192), _pack(rng, pool[:300], 512)),
+            (_pack(rng, pool[:512], 8192), _pack(rng, pool[:512], 512)),
+            (_pack(rng, pool[:5000], 8192), _pack(rng, pool[4800:5300], 512)),
+            (_pack(rng, pool[:7900], 8192), _pack(rng, pool[7800:8100], 512)),
+            (_pack(rng, pool[:100], 8192), _pack(rng, [], 512)),
+            (_pack(rng, [], 8192), _pack(rng, [], 512)),
+            (_pack(rng, pool[9000:9600], 8192),
+             _pack(rng, pool[9500:9700], 512)),
+            (_pack(rng, pool[:8192], 8192), _pack(rng, pool[:512], 512))]
+    for cap_out in (8192, 16384):
+        pa, pb = stack([a for a, _ in rows]), stack([b for _, b in rows])
+        par.hold("overlay_merge_stacked",
+                 (overlay_merge_stacked(pa, pb, cap_out),),
+                 (merge_overlay_stacked_torch(pa, pb, cap_out),))
+    log("k2 stacked parity S=8 (empty rows, all-overlap, tombstones, cap "
+        "growth), cap_out 8192 and 16384: exact")
+    ca, cb = 1 << 21, 64
+    big = [(_pack(rng, pool[i * 300_000:i * 300_000 + 3520], ca),
+            _pack(rng, pool[i * 300_000 + 3500:i * 300_000 + 3564], cb))
+           for i in range(SHARDS)]
+    pa, pb = stack([a for a, _ in big]), stack([b for _, b in big])
+    par.hold("overlay_merge_stacked", (overlay_merge_stacked(pa, pb, ca),),
+             (merge_overlay_stacked_torch(pa, pb, ca),))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    km = time_cuda(lambda: overlay_merge_stacked(pa, pb, ca), 20, flush)
+    pm = time_cuda(lambda: merge_overlay_stacked_torch(pa, pb, ca), 5, flush,
+                   PLAIN_HOLD_CYCLES)
+    live = int((pa[:, 0] != BIASED_MAX).sum())
+    nb = int((pb[:, 0] != BIASED_MAX).sum())
+    nbytes = 24 * (live + nb) + 24 * SHARDS * ca
+    out = {"card": card, "rows": SHARDS, "Ca": ca, "Cb": cb, "cap_out": ca,
+           "live": live, "batch_live": nb,
+           "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+           "plain_ms": float(np.median(pm)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    log(f"k2 stacked parity S={SHARDS} Ca=cap_out={ca} Cb={cb}: exact; "
+        "timed: " + json.dumps(out))
+    return out
+
+
 # ------------------------------------------------------------- phases 3 and 4
 class Oracle:
     """The served view on the host: the sorted bulkloaded keys (payload =
@@ -455,12 +628,15 @@ def make_step(rng, keys: np.ndarray, lo: int, hi: int, gets: int,
     return reqs
 
 
-def serve_and_check(eng, oracle: Oracle, trace: list) -> None:
+def serve_and_check(eng, oracle: Oracle, trace: list) -> list:
     """Run every step of ``trace`` through ``eng`` and check each result
-    against the oracle (the checks sit outside the engine's step timer)."""
+    against the oracle (the checks sit outside the engine's step timer).
+    Returns every (op, key, result)."""
+    out = []
     for si, step in enumerate(trace):
         reqs = [eng.submit(*r) for r in step]
         eng.step()
+        out += [(r.op, r.key, r.result) for r in reqs]
         for r in reqs:
             if r.op in ("insert", "delete"):
                 exp = True if r.op == "insert" else (
@@ -480,6 +656,7 @@ def serve_and_check(eng, oracle: Oracle, trace: list) -> None:
             exp = oracle.scan(r.key, r.count, wkeys)
             if r.result != exp:
                 raise AssertionError(f"step {si}: scan {r.key} differs")
+    return out
 
 
 def main_path(n: int, steps: int, dev, card: str) -> dict:
@@ -542,14 +719,13 @@ def main_path(n: int, steps: int, dev, card: str) -> dict:
             "summary": out, "oracle": oracle, "keys": keys, "span": (lo, hi)}
 
 
-def breakdown(mp: dict, steps: int) -> dict:
-    """Serve ``steps`` more main-path steps with the engine's phases timed
-    on the host clock (device phases end in a synchronize): mean seconds per
-    step in host writes, the overlay merge (batch upload + K2), gets (upload,
-    K1, D2H, results) and scans; the rest is admission and bookkeeping."""
+def breakdown(eng, oracle, make, steps: int) -> dict:
+    """Serve ``steps`` more steps of ``make(rng)`` through ``eng`` with the
+    engine's phases timed on the host clock (device phases end in a
+    synchronize): mean seconds per step in host writes, the overlay merge
+    (batch upload + K2), gets (upload, K1, D2H, results) and scans; the rest
+    is admission and bookkeeping."""
     import torch
-    eng, oracle, keys = mp["engine"], mp["oracle"], mp["keys"]
-    lo, hi = mp["span"]
     acc = {"host_writes": 0.0, "overlay_merge": 0.0, "gets": 0.0,
            "scans": 0.0}
 
@@ -570,8 +746,7 @@ def breakdown(mp: dict, steps: int) -> dict:
     rng = np.random.default_rng(13)
     n0 = len(eng.step_seconds)
     try:
-        serve_and_check(eng, oracle, [make_step(rng, keys, lo, hi, 8192, 512,
-                                                16) for _ in range(steps)])
+        serve_and_check(eng, oracle, [make(rng) for _ in range(steps)])
     finally:
         for name in ("_apply_write", "_after_writes", "_serve_gets",
                      "_serve_scans"):
@@ -581,6 +756,76 @@ def breakdown(mp: dict, steps: int) -> dict:
     out["other"] = step_s - sum(out.values())
     out["step"] = step_s
     log("step breakdown (s per step): " + json.dumps(out))
+    return out
+
+
+PHASES = {"_after_writes": "overlay_merge", "_serve_gets": "gets",
+          "_serve_scans": "scans"}
+
+
+def index_profile(eng, oracle, make, steps: int, label: str) -> dict:
+    """Device time over ``steps`` more steps of ``make(rng)`` through
+    ``eng`` (``torch.profiler``; results still checked, outside the step
+    timer): kernels a step, their device ms a step and the device's busy
+    share of the engine's step time, each phase's host ms, its kernels'
+    device ms and its span on the card (``record_function`` ranges), and
+    the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    def dev_us(e, own=True):
+        if own:
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    rng = np.random.default_rng(31)
+    trace = [make(rng) for _ in range(steps)]
+    for attr, name in PHASES.items():
+        setattr(eng, attr, ranged(name, getattr(eng, attr)))
+    n0 = len(eng.step_seconds)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_and_check(eng, oracle, trace)
+            torch.cuda.synchronize()
+    finally:
+        for attr in PHASES:
+            delattr(eng, attr)
+    step_ms = float(np.sum(eng.step_seconds[n0:])) * 1e3 / steps
+    ev = prof.key_averages()
+    # a range appears twice: on the host (its time; its kernels' device
+    # time) and on the card (first kernel to last, idle gaps included)
+    kern = [e for e in ev if e.device_type == DeviceType.CUDA
+            and e.key not in PHASES.values() and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kern) / 1e3 / steps
+    phases = {name: {} for name in PHASES.values()}
+    for e in ev:
+        if e.key not in phases:
+            continue
+        if e.device_type == DeviceType.CPU:
+            phases[e.key]["host_ms"] = e.cpu_time_total / 1e3 / steps
+            phases[e.key]["kernel_ms"] = dev_us(e, own=False) / 1e3 / steps
+        else:
+            phases[e.key]["device_span_ms"] = dev_us(e) / 1e3 / steps
+    out = {"steps": steps, "step_ms": step_ms,
+           "device_ms_per_step": total,
+           "device_busy_share": total / step_ms,
+           "kernels_per_step": sum(e.count for e in kern) / steps,
+           "phases": phases,
+           "top_kernels": [{"name": e.key[:80], "calls": e.count // steps,
+                            "ms_per_step": dev_us(e) / 1e3 / steps}
+                           for e in sorted(kern, key=dev_us,
+                                           reverse=True)[:8]]}
+    log(f"{label} profile (per step): " + json.dumps(out))
     return out
 
 
@@ -613,14 +858,291 @@ def compaction_phase(dev) -> None:
             raise AssertionError(f"compaction {mode}: too few compactions")
 
 
+def _writes(rng, keys, hot: tuple, writes: int, upd_keys=None) -> list:
+    """60% inserts of fresh keys in ``hot`` [lo, hi), 30% updates and 10%
+    deletes of ``upd_keys`` (default: all keys)."""
+    n_ins, n_upd = int(writes * 0.6), int(writes * 0.3)
+    pick = keys if upd_keys is None else upd_keys
+    reqs = [("insert", int(k), int(k) % 1_000_003 + 7)
+            for k in rng.integers(hot[0], hot[1], n_ins, dtype=np.uint64)]
+    reqs += [("insert", int(k), int(k) * 3 % 2**61)
+             for k in rng.choice(pick, n_upd)]
+    return reqs + [("delete", int(k))
+                   for k in rng.choice(pick, writes - n_ins - n_upd)]
+
+
+def make_sharded_step(rng, keys, bounds, hot: tuple, gets: int, writes: int,
+                      scans: int) -> list:
+    """The skewed sharded trace of ``benchmarks/sharded_serving.py``
+    scaled up: fresh-key inserts in the hot shard's range, updates and
+    deletes over every shard, gets uniform over the key range (10%
+    absent), and scans of 100 of which half start among the last 50 keys
+    up to a bound (they cross into the next shard)."""
+    lo, hi = int(keys[0]), int(keys[-1]) + 1
+    n_abs = gets // 10
+    reqs = _writes(rng, keys, hot, writes)
+    reqs += [("get", int(k)) for k in rng.choice(keys, gets - n_abs)]
+    reqs += [("get", int(k)) for k in rng.integers(lo, hi, n_abs,
+                                                   dtype=np.uint64)]
+    ends = np.searchsorted(keys, rng.choice(bounds, scans // 2),
+                           side="right")
+    starts = keys[np.maximum(ends - rng.integers(1, 51, scans // 2), 0)]
+    starts = np.concatenate([starts, rng.choice(keys, scans - scans // 2)])
+    return reqs + [("scan", int(k), 0, 100) for k in starts]
+
+
+def _shard_range(part, s: int) -> tuple:
+    """[lo, hi) of shard ``s``'s keys."""
+    b = part.bounds
+    return (0 if s == 0 else int(b[s - 1]) + 1,
+            2**64 - 1 if s == len(b) else int(b[s]) + 1)
+
+
+def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
+    """The sharded path at the main path's size: ``partition_bulkload`` of
+    its keys into SHARDS shards (default 4 KB geometry), a
+    ``ShardedIndexEngine`` (gamma 0.05) serving SHARDED_STEPS skewed steps
+    with every result checked against the oracle and the launch counts of
+    K1's shard route, K2 and K2's stacked form read around exactly that
+    run; then the step's breakdown and profile, and K1's shard route held
+    and timed on the run's own tensors."""
+    import torch
+    from repro_torch.core import partition_bulkload
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.core.workloads import payloads_for
+    from repro_torch.kernels.fused_lookup.ops import (fused_lookup_sharded,
+                                                      lookup_sharded_plain)
+    from repro_torch.kernels.overlay_merge.ops import (overlay_merge,
+                                                       overlay_merge_stacked)
+    from repro_torch.serving import ShardedIndexEngine, pad_queries
+
+    n = keys.shape[0]
+    log(f"sharded path: {n} keys in {SHARDS} shards, {SHARDED_STEPS} steps")
+    t0 = time.perf_counter()
+    part = partition_bulkload(keys, payloads_for(keys), SHARDS)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ShardedIndexEngine(part, device=dev)        # gamma = 0.05
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stk = eng.stk
+    log(f"sharded set-up: bulkloaded into {part.num_shards} shards in "
+        f"{t1 - t0:.3f} s (sizes {[sh.n_items for sh in part.shards]}), "
+        f"mirrored, stacked and moved to {eng.device} in {t2 - t1:.3f} s "
+        f"(leaf pool {tuple(stk['leaf_keys'].shape)}, slot pool "
+        f"{tuple(stk['slot_tag'].shape)}, inner height "
+        f"{eng.sdi.max_inner_height}, overlay pack "
+        f"{tuple(eng.ov_arrs['ov_pack'].shape)})")
+    hot = _shard_range(part, SHARDS // 2)
+    bounds = part.bounds.copy()
+
+    def make(rng):
+        return make_sharded_step(rng, keys, bounds, hot, 8192, 512, 16)
+    rng = np.random.default_rng(23)
+    trace = [make(rng) for _ in range(SHARDED_STEPS)]
+    oracle = Oracle(keys)
+    fused_lookup_sharded.launches = 0
+    overlay_merge.launches = 0
+    overlay_merge_stacked.launches = 0
+    serve_and_check(eng, oracle, trace)
+    launches = {"fused_lookup_sharded": fused_lookup_sharded.launches,
+                "overlay_merge": overlay_merge.launches,
+                "overlay_merge_stacked": overlay_merge_stacked.launches}
+    st = eng.stats()
+    step_s = np.asarray(eng.step_seconds)
+    gets = np.array([r[1] for step in trace for r in step if r[0] == "get"],
+                    dtype=np.uint64)
+    per_shard = np.bincount(part.shard_of_batch(gets), minlength=SHARDS)
+    out = {
+        "card": card, "keys": n, "shards": part.num_shards,
+        "steps": st["steps"], "requests": sum(len(s) for s in trace),
+        "steps_per_s": st["steps"] / eng.serve_seconds,
+        "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+        "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+        "first_step_ms": float(step_s[0]) * 1e3,
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "setup_s": {"bulkload": t1 - t0, "mirror_stack_upload": t2 - t1},
+        "gets_per_shard": per_shard.tolist(),
+        "compactions": st["compactions"],
+        "overlay_merges": st["overlay_merges"],
+        "overlay_reseeds": st["overlay_reseeds"],
+        "failed_swaps": st["failed_swaps"],
+        "repart_failures": st["repart_failures"],
+        "read_backend": st["read_backend"], "launches": launches,
+        "checked": "every get, write and scan result equals the oracle",
+    }
+    log("sharded path: " + json.dumps(out))
+    for k in ("fused_lookup_sharded", "overlay_merge"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the sharded path")
+    # one card keeps one flat overlay pack: the stacked merge is the mesh's
+    if launches["overlay_merge_stacked"]:
+        raise AssertionError("overlay_merge_stacked ran on the one-card path")
+    _no_failed_builds(st, "sharded path")
+    if (per_shard == 0).any():
+        raise AssertionError(f"a shard got no gets: {per_shard.tolist()}")
+    out["breakdown_s"] = breakdown(eng, oracle, make, 5)
+    out["profile"] = index_profile(eng, oracle, make, 3, "sharded path")
+    _no_failed_builds(eng.stats(), "sharded path")
+
+    # K1's shard route on the run's own tensors: the last step's gets
+    stk, ovr, h = eng.stk, eng.ov_arrs, eng._height()
+    q = keys_to_tensor(pad_queries([r[1] for r in trace[-1]
+                                    if r[0] == "get"]), dev)
+    Q = q.shape[0]
+    got = fused_lookup_sharded(stk, ovr, q, h)
+    par.hold("fused_lookup_sharded", got, lookup_sharded_plain(stk, ovr, q, h))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    km = time_cuda(lambda: fused_lookup_sharded(stk, ovr, q, h), 50, flush)
+    pm = time_cuda(lambda: lookup_sharded_plain(stk, ovr, q, h), 10, flush,
+                   PLAIN_HOLD_CYCLES)
+    rows = int(torch.unique(got[2]).numel())
+    C = stk["leaf_keys"].shape[2]
+    # K1's bytes (queries in; payload, found, leaf and shard id out; each
+    # distinct leaf row's keys once; a payload word, an inner slot entry
+    # and an overlay key a query) plus the boundary table
+    nbytes = Q * 8 + Q * 17 + rows * C * 8 + Q * 8 + Q * 28 \
+        + stk["bounds"].numel() * 8
+    out["k1"] = {"Q": Q, "height": h, "leaf_rows": rows,
+                 "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+                 "plain_ms": float(np.median(pm)),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "library_ms": None,
+                 "launches": launches["fused_lookup_sharded"]}
+    log(f"k1 sharded parity sharded path ({n}-key stack, Q={Q}, overlay "
+        f"{tuple(ovr['ov_pack'].shape)}): exact; timed on {card}: "
+        + json.dumps(out["k1"]))
+    return out
+
+
+def _no_failed_builds(st: dict, what: str) -> None:
+    """The engine rolls a background build that raised back and serves
+    on; on the card every build must land."""
+    if st["failed_swaps"] or st["repart_failures"]:
+        raise AssertionError(f"{what}: {st['failed_swaps']} compaction and "
+                             f"{st['repart_failures']} split/merge builds "
+                             "failed")
+
+
+def _hot_step(rng, keys, hot: tuple, hot_keys) -> list:
+    """512 writes inside the hot shard, 1024 gets over every shard (10%
+    absent), 8 scans of 100."""
+    lo, hi = int(keys[0]), int(keys[-1]) + 1
+    return (_writes(rng, keys, hot, 512, hot_keys)
+            + [("get", int(k)) for k in rng.choice(keys, 922)]
+            + [("get", int(k)) for k in rng.integers(lo, hi, 102,
+                                                     dtype=np.uint64)]
+            + [("scan", int(k), 0, 100) for k in rng.choice(keys, 8)])
+
+
+def sharded_maintenance(dev) -> None:
+    """The sharded engine's maintenance on the card at MAINT_KEYS keys in
+    SHARDS shards, every result checked against the oracle, synchronous
+    and background runs answering request for request alike:
+    shard-local compaction (gamma 0.001, writes in one hot shard: only it
+    compacts, every cold shard keeps its mirror's journal epoch, full
+    builds and refreshes), then online repartitioning (drift inserts above
+    the loaded range until the load monitor splits, then a merge forced
+    by hand)."""
+    from repro_torch.core import partition_bulkload
+    from repro_torch.core.workloads import make_dataset, payloads_for
+    from repro_torch.serving import ShardedIndexEngine
+    keys = make_dataset("covid", MAINT_KEYS, seed=3)
+    results = {}
+    for mode in ("sync", "async"):
+        part = partition_bulkload(keys, payloads_for(keys), SHARDS)
+        eng = ShardedIndexEngine(part, device=dev, gamma=0.001,
+                                 async_compact=mode == "async")
+        hs = SHARDS // 2
+        hot = _shard_range(part, hs)
+        hot_keys = keys[(keys >= np.uint64(hot[0]))
+                        & (keys < np.uint64(hot[1]))]
+        before = [(sh.di.journal_epoch, sh.di.full_builds, sh.di.refreshes)
+                  for sh in eng.shards]
+        rng = np.random.default_rng(19)
+        oracle = Oracle(keys)
+        out = []
+        for i in range(8):
+            out += serve_and_check(eng, oracle,
+                                   [_hot_step(rng, keys, hot, hot_keys)])
+            if i % 2:       # let every second step's builds land
+                eng.drain_compactions()
+        eng.drain_compactions()
+        out += serve_and_check(eng, oracle, [[
+            ("get", int(k)) for k in rng.choice(keys, 1024)]])
+        st = eng.stats()
+        cold = [s for s in range(SHARDS) if s != hs]
+        moved = [s for s in cold if eng.shards[s].compactions
+                 or (eng.shards[s].di.journal_epoch,
+                     eng.shards[s].di.full_builds,
+                     eng.shards[s].di.refreshes) != before[s]]
+        log(f"sharded compaction {mode}: per shard "
+            f"{st['compactions_per_shard']}, swaps={st['swaps']}, "
+            f"restacks={st['full_restacks']}, overlay merges/reseeds="
+            f"{st['overlay_merges']}/{st['overlay_reseeds']}; cold shards "
+            f"kept their epoch: {not moved}; every result checked")
+        if st["compactions_per_shard"][hs] < 2 or moved \
+                or (mode == "async" and st["swaps"] < 2):
+            raise AssertionError(f"sharded compaction {mode}: not local "
+                                 f"(moved cold shards {moved})")
+        _no_failed_builds(st, f"sharded compaction {mode}")
+        results[("compact", mode)] = out
+
+        # online repartitioning under drift above the loaded range
+        part = partition_bulkload(keys, payloads_for(keys), SHARDS)
+        eng = ShardedIndexEngine(part, device=dev, gamma=0.2,
+                                 repartition=True, split_ratio=1.5,
+                                 async_compact=mode == "async")
+        rng = np.random.default_rng(29)
+        oracle = Oracle(keys)
+        top = int(keys[-1]) + 1
+        out, drift = [], np.empty(0, np.uint64)
+        for i in range(12):
+            fresh = rng.integers(top, top + 2**40, 8192, dtype=np.uint64)
+            drift = np.concatenate([drift, fresh])
+            step = ([("insert", int(k), int(k) % 65_521) for k in fresh]
+                    + [("get", int(k)) for k in rng.choice(drift, 256)]
+                    + [("get", int(k)) for k in rng.choice(keys, 256)]
+                    + [("scan", int(k), 0, 100)
+                       for k in rng.choice(drift, 4)]
+                    + [("scan", int(keys[-60]), 0, 100)])
+            out += serve_and_check(eng, oracle, [step])
+            eng.drain_compactions()
+        splits = eng.splits
+        if not eng.request_merge(0):
+            raise AssertionError(f"repartition {mode}: merge refused")
+        eng.drain_compactions()
+        out += serve_and_check(eng, oracle, [
+            [("get", int(k)) for k in rng.choice(keys, 512)]
+            + [("get", int(k)) for k in rng.choice(drift, 512)]
+            + [("scan", int(k), 0, 100) for k in rng.choice(keys, 8)]])
+        st = eng.stats()
+        log(f"sharded repartition {mode}: splits={splits} then merges="
+            f"{st['merges']}, shards {st['num_shards']} (sizes "
+            f"{st['shard_sizes']}), boundary version "
+            f"{st['boundary_version']}, compactions={st['compactions']}, "
+            f"restacks={st['full_restacks']}: every result checked")
+        if splits < 1 or st["merges"] < 1:
+            raise AssertionError(f"repartition {mode}: no split or merge")
+        _no_failed_builds(st, f"sharded repartition {mode}")
+        results[("repart", mode)] = out
+    for phase in ("compact", "repart"):
+        if results[(phase, "sync")] != results[(phase, "async")]:
+            raise AssertionError(f"sharded {phase}: sync != async")
+    log("sharded maintenance: sync == async, request for request")
+
+
 # ------------------------------------------------------------------- phase 5
 HOLD_CYCLES = 2_000_000     # about 1 ms of spinning at the H100's clocks
+# a plain version enqueues hundreds of small launches, up to about 20 ms of
+# the host's time: its hold must outlast that, or its time is the host's
+PLAIN_HOLD_CYCLES = 60_000_000
 
 
-def time_cuda(fn, reps: int, flush) -> np.ndarray:
+def time_cuda(fn, reps: int, flush, hold: int = HOLD_CYCLES) -> np.ndarray:
     """ms of each of ``reps`` launches of ``fn``, each timed by CUDA events
     after a write of ``flush`` evicted L2.  The stream then spins on the
-    card for ``HOLD_CYCLES`` (``torch.cuda._sleep``), so the host has
+    card for ``hold`` cycles (``torch.cuda._sleep``), so the host has
     enqueued ``fn``'s launches before the start event fires and the events
     time the device's work alone, not the host's enqueue."""
     import torch
@@ -629,7 +1151,7 @@ def time_cuda(fn, reps: int, flush) -> np.ndarray:
     evs = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -664,7 +1186,8 @@ def measure(mp: dict, par: Parity, dev) -> list:
     def k1():
         return fused_lookup(arrs, ovr, q, h)
     k1_ms = time_cuda(k1, 50, flush)
-    k1_plain = time_cuda(lambda: lookup_plain(arrs, ovr, q, h), 10, flush)
+    k1_plain = time_cuda(lambda: lookup_plain(arrs, ovr, q, h), 10, flush,
+                         PLAIN_HOLD_CYCLES)
     leaf = got[2]
     C = arrs["leaf_keys"].shape[1]
     rows = int(torch.unique(leaf).numel())
@@ -693,7 +1216,8 @@ def measure(mp: dict, par: Parity, dev) -> list:
         return overlay_merge(pack, batch, cap_out)
     k2_ms = time_cuda(k2, 20, flush)
     k2_plain = time_cuda(lambda: merge_overlay_pack_torch(pack, batch,
-                                                          cap_out), 5, flush)
+                                                          cap_out), 5, flush,
+                         PLAIN_HOLD_CYCLES)
     nb = int((batch[0] != BIASED_MAX).sum())
     k2_bytes = 24 * (live + nb) + 24 * cap_out
     log(f"timing shapes: K1 Q={Q} height={h} leaf rows={rows} overlay "
@@ -807,7 +1331,8 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
                           lambda: k3.overlay_probe_plain(ovr, q),
                           lambda: torch.searchsorted(pack[0], q)),
     }
-    ms = {k: (time_cuda(f, 50, flush), time_cuda(p, 10, flush),
+    ms = {k: (time_cuda(f, 50, flush),
+              time_cuda(p, 10, flush, PLAIN_HOLD_CYCLES),
               time_cuda(lib, 50, flush) if lib else None)
           for k, (f, p, lib) in t.items()}
     hits = int(k3.overlay_probe(ovr, q)[1].sum())
@@ -1194,7 +1719,7 @@ def _k6_shape(dev, par: Parity, B: int, NP: int, pool: int, lo: int,
         km = time_cuda(lambda: paged_attention(table, lens, q, kp, vp), 50,
                        flush)
         pm = time_cuda(lambda: paged_attention_plain(table, lens, q, kp, vp),
-                       5, flush)
+                       5, flush, PLAIN_HOLD_CYCLES)
         lm = time_cuda(sdpa, 50, flush)
         elt = q.element_size()
         # bytes K6 must move: the live tokens' K and V of the row's kv
@@ -1256,14 +1781,37 @@ def main() -> int:
     k1_parity(par, dev)
     k34_edge_parity(par, dev)
     k2_parity(par, dev)
+    k1_sharded_parity(par, dev)
+    k2s = k2_stacked_parity(par, dev, card)
     mp = main_path(MAIN_KEYS, MAIN_STEPS, dev, card)
-    mp["summary"]["breakdown_s"] = breakdown(mp, 5)
+    lo, hi = mp["span"]
+    mp["summary"]["breakdown_s"] = breakdown(
+        mp["engine"], mp["oracle"],
+        lambda rng: make_step(rng, mp["keys"], lo, hi, 8192, 512, 16), 5)
     compaction_phase(dev)
+    sharded_maintenance(dev)
     kernels = measure(mp, par, dev)
     kernels += staged_phase(mp, par, dev, card)
-    s = mp["summary"]
-    del mp                          # free the index path's tensors
+    s, keys = mp["summary"], mp["keys"]
+    del mp                  # free the monolithic index and its tensors
+    gc.collect()
     torch.cuda.empty_cache()
+    sh = sharded_phase(keys, dev, card, par)
+    del keys
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels[0]["sharded"] = {
+        "name": "fused_lookup_sharded", "route": "cuda",
+        **sh["k1"], "source": K1_SOURCE, "replaces": K1S_REPLACES,
+        "monolithic_ms": kernels[0]["ms"],
+        "max_abs_err": par.err["fused_lookup_sharded"],
+        "cases": par.cases["fused_lookup_sharded"], "parity": "exact"}
+    kernels[1]["stacked"] = {
+        "name": "overlay_merge_stacked", "route": "cuda",
+        **k2s, "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": sh["launches"]["overlay_merge_stacked"],
+        "max_abs_err": par.err["overlay_merge_stacked"],
+        "cases": par.cases["overlay_merge_stacked"], "parity": "exact"}
     lm_parity(dev)
     lm = lm_phase(dev, card, par)
     torch.cuda.empty_cache()
@@ -1278,6 +1826,10 @@ def main() -> int:
     log(f"end to end on {card}: {s['steps_per_s']} steps/s, p99 step "
         f"{s['p99_step_ms']} ms, peak device memory "
         f"{s['max_memory_allocated_bytes']} bytes")
+    log(f"sharded end to end on {card}: {sh['steps_per_s']} steps/s, p50 "
+        f"step {sh['p50_step_ms']} ms, p99 step {sh['p99_step_ms']} ms, "
+        f"peak device memory {sh['max_memory_allocated_bytes']} bytes; K1 "
+        f"sharded {sh['k1']['ms']} ms (monolithic {kernels[0]['ms']} ms)")
     log(f"lm end to end on {card}: {lm['tokens_per_s']} tokens/s "
         f"({lm['generated_tokens_per_s']} generated), p50 step "
         f"{lm['p50_step_ms']} ms, p99 step {lm['p99_step_ms']} ms, peak "

@@ -5,7 +5,9 @@ from .blockdev import BlockDevice, IOStats
 from .delta_overlay import DeltaOverlay
 from .fmcd import LinearModel, fmcd, conflict_degree, dataset_conflict_degree
 from .interface import OrderedIndex
+from .partition import RangePartition, partition_bulkload
 
 __all__ = ["Aulid", "AulidConfig", "BlockDevice", "DeltaOverlay", "IOStats",
            "JournalEntry", "LinearModel", "fmcd", "conflict_degree",
-           "dataset_conflict_degree", "OrderedIndex"]
+           "dataset_conflict_degree", "OrderedIndex", "RangePartition",
+           "partition_bulkload"]

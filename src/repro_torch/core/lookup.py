@@ -1,11 +1,15 @@
 """Batched device read/write path over a :class:`DeviceIndex` mirror — the
-port of ``src/repro/core/lookup.py:51-460`` (monolithic, S=1).
+port of ``src/repro/core/lookup.py:51-740`` on one device: the monolithic
+path (S=1) and the range-sharded one over a :class:`StackedDeviceIndex`.
 
 The mirror lives on one device as the dict that :func:`mirror_from_numpy`
 builds: the pools of ``_STACK_2D + _STACK_3D`` in the layout the K1 kernel
 reads directly (``kernels.fused_lookup.ops.POOL_DTYPES``), u64 keys biased
-to int64 and payloads as int64 bits (``core.keys``).  The overlay is one
-(3, cap) int64 pack: biased keys, payload bits, tombstones 0/1.
+to int64 and payloads as int64 bits (``core.keys``).  A stacked mirror
+(:func:`stacked_device_arrays`) is the same dict with a leading shard axis
+on every pool, plus the boundary table and the cross-shard leaf chain.
+The overlay is one (3, cap) int64 pack: biased keys, payload bits,
+tombstones 0/1.
 
 Point reads and overlay merges dispatch by the tensors' device: on CUDA
 they launch K1 (``fused_lookup``) and K2 (``overlay_merge``), on the CPU
@@ -23,10 +27,12 @@ import torch
 from ..device import resolve
 from ..kernels.fused_lookup.ops import (KEY_FIELDS, POOL_DTYPES, STALE_STEPS,
                                         TAG_BT, TAG_DATA, TAG_MIXED, TAG_NULL,
-                                        TAG_PA, fused_lookup)
+                                        TAG_PA, fused_lookup,
+                                        fused_lookup_sharded)
 from ..kernels.overlay_merge.ops import merge_overlay_pack_torch, overlay_merge
 from .delta_overlay import DeltaOverlay, UINT64_MAX, merge_overlays, next_pow2
-from .device_index import _STACK_2D, _STACK_3D, DeviceIndex
+from .device_index import (_STACK_2D, _STACK_3D, DeviceIndex,
+                           StackedDeviceIndex)
 from .keys import BIASED_MAX, bias_np
 
 __all__ = ["STALE_STEPS", "TAG_NULL", "TAG_DATA", "TAG_PA", "TAG_BT",
@@ -35,7 +41,10 @@ __all__ = ["STALE_STEPS", "TAG_NULL", "TAG_DATA", "TAG_PA", "TAG_BT",
            "overlay_arrays", "overlay_arrays_merged",
            "merge_overlay_pack_torch", "empty_overlay_pack",
            "merge_overlay_pack", "update_leaf_rows", "scan_batch",
-           "scan_batch_overlay"]
+           "scan_batch_overlay", "stacked_device_arrays",
+           "upload_shard_slices", "update_stacked_shard",
+           "lookup_batch_sharded", "lookup_batch_sharded_overlay",
+           "scan_batch_sharded", "scan_batch_sharded_overlay"]
 
 # the mirror pools every read path gathers from (the reference's list)
 _DEVICE_FIELDS = [f for f, _ in _STACK_2D + _STACK_3D]
@@ -279,3 +288,123 @@ def update_leaf_rows(arrs: dict, di: DeviceIndex) -> dict:
         arrs["last_leaf_min"] = _pool_tensor(
             "slot_key", np.array([di.last_leaf_min], dtype=np.uint64), dev)
     return arrs
+
+
+# -------------------------------------------------------------------- sharded
+# The range-sharded read path (DESIGN.md §9): the stacked pools of
+# ``device_index.stack_device_indexes`` carry a leading shard axis; point
+# reads route each query in K1 (``count(bounds < q)``) and read its shard's
+# pools there, so no lane scatter is needed; scans walk the flattened
+# (S*L, cap) leaf pools through ``leaf_next_chain`` from K1's global start
+# leaf, crossing shard boundaries with no extra launch.
+
+def stacked_device_arrays(sdi: StackedDeviceIndex, bounds_version: int = 0,
+                          device=None) -> dict:
+    """Move a stacked mirror's pools to ``device`` (default: the card):
+    the ``(S, ...)`` pools in K1's layout, ``meta`` (S, 2), biased
+    ``last_leaf_min`` (S,) and ``bounds`` (S-1,), and ``leaf_next_chain``
+    (S*L,).  ``bounds_version`` records which boundary-table version the
+    ``bounds`` belong to (DESIGN.md §12), for stats and tests."""
+    dev = resolve(device)
+    d = {f: _pool_tensor(f, getattr(sdi, f), dev) for f in _DEVICE_FIELDS}
+    d["meta"] = _pool_tensor("meta", sdi.meta, dev)
+    d["last_leaf_min"] = _pool_tensor("slot_key", sdi.last_leaf_min, dev)
+    d["bounds"] = _pool_tensor("slot_key", sdi.bounds, dev)
+    d["leaf_next_chain"] = _pool_tensor("leaf_next", sdi.leaf_next_chain,
+                                        dev)
+    d["bounds_version"] = int(bounds_version)
+    return d
+
+
+def upload_shard_slices(slices: dict, device) -> dict:
+    """The pool slices of one shard (``device_index.pad_shard_slices``) on
+    ``device``, ready for :func:`update_stacked_shard`'s ``dev_slices``."""
+    dev = resolve(device)
+    return {f: _pool_tensor(f, slices[f], dev) for f in _DEVICE_FIELDS}
+
+
+def update_stacked_shard(stk: dict, sdi: StackedDeviceIndex,
+                         shards: list[int],
+                         dev_slices: dict | None = None) -> dict:
+    """Patch the device copy of the stacked pools after ``restack_shard``
+    refreshed the given shards: only those shards' slices are written
+    (plus the small per-shard ``meta`` / ``last_leaf_min`` and the
+    successor chain), so the device cost of a shard-local compaction is
+    proportional to the hot shard.  ``dev_slices`` maps a shard id to its
+    slices already on the device (:func:`upload_shard_slices`, from a
+    background build); other shards upload from ``sdi``.
+
+    The slices are written IN PLACE (``stk[f][s].copy_``), the torch form
+    of the reference's donated install: every dict that shares those pool
+    tensors — ``stk`` itself and any older snapshot of it — sees the new
+    rows.  The returned dict is new only in ``meta``, ``last_leaf_min`` and
+    ``leaf_next_chain``.  Callers that keep a snapshot across an install
+    copy its pools first."""
+    assert shards, "update_stacked_shard needs at least one changed shard"
+    stk = dict(stk)
+    dev = stk["leaf_keys"].device
+    for s in shards:
+        up = dev_slices.get(s) if dev_slices is not None else None
+        for f in _DEVICE_FIELDS:
+            row = up[f] if up is not None \
+                else _pool_tensor(f, getattr(sdi, f)[s], dev)
+            stk[f][s].copy_(row)
+    stk["meta"] = _pool_tensor("meta", sdi.meta, dev)
+    stk["last_leaf_min"] = _pool_tensor("slot_key", sdi.last_leaf_min, dev)
+    stk["leaf_next_chain"] = _pool_tensor("leaf_next", sdi.leaf_next_chain,
+                                          dev)
+    return stk
+
+
+def lookup_batch_sharded(stk: dict, q: torch.Tensor, height: int = 3):
+    """Batched point lookup over a stacked mirror: (payload int64 bits,
+    found bool, global leaf row ``sid * L + leaf`` int32, shard id int32).
+    K1's shard route on the card, its plain version on the CPU."""
+    return fused_lookup_sharded(stk, None, q, height)
+
+
+def lookup_batch_sharded_overlay(stk: dict, ovr: dict, q: torch.Tensor,
+                                 height: int = 3):
+    """Sharded point lookup merged with the global overlay pack (shards
+    partition the key space in order, so the shards' overlays concatenate
+    into one sorted pack).  Returns (payload, found, global leaf row)."""
+    return fused_lookup_sharded(stk, ovr, q, height)[:3]
+
+
+def scan_batch_sharded(stk: dict, q: torch.Tensor, count: int = 100,
+                       height: int = 3, max_blocks: int | None = None):
+    """Batched range scan over a stacked mirror: the start leaf comes from
+    K1's sharded read, the walk runs over the flattened (S*L, cap) leaf
+    pools through the shard-successor chain, so a scan that exhausts its
+    shard continues in the next shard's first leaf.  Returns (biased keys
+    (Q, count), payload bits, valid mask)."""
+    S = stk["meta"].shape[0]
+    cap = stk["leaf_keys"].shape[2]
+    if max_blocks is None:
+        # + S: each shard boundary crossed can add one underfull chain leaf
+        max_blocks = count // max(cap // 2, 1) + 2 + S
+    _, _, gleaf, _ = lookup_batch_sharded(stk, q, height=height)
+    return _scan_leaf_walk(stk["leaf_keys"].reshape(-1, cap),
+                           stk["leaf_pay"].reshape(-1, cap),
+                           stk["leaf_count"].reshape(-1),
+                           stk["leaf_next_chain"], gleaf, q, count,
+                           max_blocks)
+
+
+def scan_batch_sharded_overlay(stk: dict, ovr: dict, q: torch.Tensor,
+                               count: int = 100, height: int = 3,
+                               max_blocks: int | None = None,
+                               ov_bound: int | None = None):
+    """Sharded range scan merged with the global overlay pack: the same
+    two-way merge as :func:`scan_batch_overlay`, over the cross-shard leaf
+    chain; ``ov_bound`` bounds the live overlay entries as there."""
+    pack = ovr["ov_pack"]
+    cap = pack.shape[1]
+    hide = cap if ov_bound is None else min(int(ov_bound), cap)
+    base = count + hide
+    if max_blocks is not None:
+        leaf_cap = stk["leaf_keys"].shape[2]
+        max_blocks = max_blocks + hide // max(leaf_cap // 2, 1) + 1
+    ks, ps, vs = scan_batch_sharded(stk, q, count=base, height=height,
+                                    max_blocks=max_blocks)
+    return _overlay_scan_merge(ks, ps, vs, pack, q, count, hide)

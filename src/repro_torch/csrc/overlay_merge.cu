@@ -2,11 +2,14 @@
 // device-resident overlay pack.
 //
 // Replaces the TPU kernel src/repro/kernels/overlay_merge/overlay_merge.py:
-// overlay_merge_planes (body _kernel) at S=1.  Output equals
-// merge_overlay_pack_jnp of src/repro/core/lookup.py bit for bit: the
-// sorted union of pack (3, Ca) and batch (3, Cb), the batch winning key
-// collisions, tombstones kept as entries, INT64_MAX (biased UINT64_MAX)
-// key padding after the last live entry.
+// overlay_merge_planes (body _kernel) over its whole (S, cap_out // ob)
+// grid.  Each of the S rows merges on its own: output row s equals
+// merge_overlay_pack_jnp of src/repro/core/lookup.py on pack row s
+// (3, Ca) and batch row s (3, Cb) bit for bit (overlay_merge_pack_stacked
+// of src/repro/kernels/overlay_merge/ops.py): the sorted union, the batch
+// winning key collisions, tombstones kept as entries, INT64_MAX (biased
+// UINT64_MAX) key padding after the last live entry.  The flat merge of
+// the serving engines is the S = 1 case.
 //
 // What bounds it on the H100: bytes.  The merge must write all cap_out
 // output slots (3 x 8 bytes each) and read every live entry once; at the
@@ -17,10 +20,11 @@
 // rank pass would be 8.6e9 compares at Ca = 2^24).  Padding sorts last, so
 // the live entries are a prefix of both inputs, and output positions
 // follow from ranks:
-//   rank_kernel (one block): for each batch key j, posa[j] = its lower
+//   rank_kernel (one block a row): for each batch key j, posa[j] = its lower
 //     bound in the pack, and the exclusive scan C over j of
 //     (live_b & key in pack); also n_live_a and n_out, the merged count.
-//   scatter_kernel (grid over max(Ca, cap_out) + Cb): a surviving pack
+//   scatter_kernel (grid over max(Ca, cap_out) + Cb, by S rows in y;
+//     each row its own scratch): a surviving pack
 //     entry i (live, not in the batch) goes to i - C[posb] + posb, with
 //     posb its lower bound in the batch; a live batch entry j goes to
 //     j + posa[j] - C[j]; slots in [n_out, cap_out) get padding.
@@ -48,11 +52,20 @@ __device__ __forceinline__ int lower_bound(const int64_t* keys, int n,
   return lo;
 }
 
-// scratch layout: posa[0..cb) | C[0..cb] | n_out | n_live_a
+// scratch layout of a row: posa[0..cb) | C[0..cb] | n_out | n_live_a
+__host__ __device__ constexpr int64_t scratch_len(int cb) {
+  return 2 * static_cast<int64_t>(cb) + 3;
+}
+
+// block r ranks row r
 __global__ void __launch_bounds__(RANK_THREADS)
-rank_kernel(const int64_t* __restrict__ ak, int ca,
-            const int64_t* __restrict__ bk, int cb,
-            int32_t* __restrict__ scratch) {
+rank_kernel(const int64_t* __restrict__ packs, int ca,
+            const int64_t* __restrict__ batches, int cb,
+            int32_t* __restrict__ scratch_all) {
+  const int64_t r = blockIdx.x;
+  const int64_t* ak = packs + r * 3 * ca;
+  const int64_t* bk = batches + r * 3 * cb;
+  int32_t* scratch = scratch_all + r * scratch_len(cb);
   int32_t* posa = scratch;
   int32_t* C = scratch + cb;
   __shared__ int warp_sums[RANK_THREADS / 32];
@@ -100,11 +113,17 @@ rank_kernel(const int64_t* __restrict__ ak, int ca,
   }
 }
 
+// blockIdx.y is the row
 __global__ void __launch_bounds__(SCATTER_THREADS)
-scatter_kernel(const int64_t* __restrict__ a, int ca,
-               const int64_t* __restrict__ b, int cb,
-               int64_t* __restrict__ out, int cap_out,
-               const int32_t* __restrict__ scratch, int64_t span) {
+scatter_kernel(const int64_t* __restrict__ packs, int ca,
+               const int64_t* __restrict__ batches, int cb,
+               int64_t* __restrict__ outs, int cap_out,
+               const int32_t* __restrict__ scratch_all, int64_t span) {
+  const int64_t r = blockIdx.y;
+  const int64_t* a = packs + r * 3 * ca;
+  const int64_t* b = batches + r * 3 * cb;
+  int64_t* out = outs + r * 3 * static_cast<int64_t>(cap_out);
+  const int32_t* scratch = scratch_all + r * scratch_len(cb);
   const int32_t* posa = scratch;
   const int32_t* C = scratch + cb;
   const int n_out = scratch[2 * cb + 1];
@@ -149,21 +168,25 @@ scatter_kernel(const int64_t* __restrict__ a, int ca,
 
 }  // namespace
 
-extern "C" int overlay_merge_launch(const void* pack, int ca,
-                                    const void* batch, int cb, void* out,
-                                    int cap_out, void* scratch,
+// packs (rows, 3, ca), batches (rows, 3, cb), out (rows, 3, cap_out),
+// scratch rows * scratch_len(cb) int32
+extern "C" int overlay_merge_launch(const void* packs, int ca,
+                                    const void* batches, int cb, void* out,
+                                    int cap_out, void* scratch, int rows,
                                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const int64_t*>(pack);
-  const auto* b = static_cast<const int64_t*>(batch);
+  const auto* a = static_cast<const int64_t*>(packs);
+  const auto* b = static_cast<const int64_t*>(batches);
   auto* sc = static_cast<int32_t*>(scratch);
-  rank_kernel<<<1, RANK_THREADS, 0, s>>>(a, ca, b, cb, sc);
+  rank_kernel<<<rows, RANK_THREADS, 0, s>>>(a, ca, b, cb, sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t span = ca > cap_out ? ca : cap_out;
   const int64_t total = span + cb;
   const int64_t blocks = (total + SCATTER_THREADS - 1) / SCATTER_THREADS;
-  scatter_kernel<<<static_cast<unsigned>(blocks), SCATTER_THREADS, 0, s>>>(
+  scatter_kernel<<<dim3(static_cast<unsigned>(blocks),
+                       static_cast<unsigned>(rows)),
+                   SCATTER_THREADS, 0, s>>>(
       a, ca, b, cb, static_cast<int64_t*>(out), cap_out, sc, span);
   return static_cast<int>(cudaGetLastError());
 }

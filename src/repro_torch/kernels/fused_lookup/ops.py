@@ -1,15 +1,18 @@
-"""K1 ``fused_lookup``: the whole batched point read (inner traversal, leaf
-search, overlay merge) in one launch of ``csrc/fused_lookup.cu``, and its
-plain PyTorch version.
+"""K1 ``fused_lookup``: the whole batched point read (shard route, inner
+traversal, leaf search, overlay merge) in one launch of
+``csrc/fused_lookup.cu``, and its plain PyTorch version.
 
 Port of ``src/repro/kernels/fused_lookup/fused_lookup.py`` (the kernel) and
-``src/repro/kernels/fused_lookup/ops.py:235-300`` (its host wrapper) at S=1.  The
-mirror dict that ``core.lookup.mirror_from_numpy`` builds IS the kernel's
-operand layout (:data:`POOL_DTYPES`), so there is no operand packing and no
-operand cache.
+``src/repro/kernels/fused_lookup/ops.py:235-300`` (its host wrapper).  Two
+entry points share the kernel: :func:`fused_lookup` over a monolithic mirror
+(``core.lookup.mirror_from_numpy``) and :func:`fused_lookup_sharded` over a
+stacked ``(S, ...)`` shard mirror (``core.lookup.stacked_device_arrays``),
+the TPU kernel's ``cfg.sharded`` branch; the monolithic mirror is the
+one-shard stack.  Those dicts ARE the kernel's operand layout
+(:data:`POOL_DTYPES`), so there is no operand packing and no operand cache.
 
-Dispatch is by the query tensor's device: a CPU tensor runs
-:func:`lookup_plain` (the twin of ``core/lookup.py:76-151, 391-423`` of the
+Dispatch is by the query tensor's device: a CPU tensor runs the plain
+version (the twin of ``core/lookup.py:76-151, 391-423, 563-660`` of the
 reference), a CUDA tensor launches the kernel or raises.  Nothing falls
 back.
 """
@@ -48,14 +51,30 @@ _KERNEL_POOLS = [f for f in POOL_DTYPES if f not in ("leaf_count",
 
 
 # ------------------------------------------------------------ plain version
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(t, idx, axis=0, mode="clip")``."""
-    return t[idx.clamp(0, t.shape[0] - 1)]
+def _as_stack(arrs: dict) -> dict:
+    """A monolithic mirror as a one-shard stack: every pool gains a leading
+    shard axis of 1 (views, no copy) and the boundary table is empty."""
+    stk = {f: arrs[f].unsqueeze(0) for f in _KERNEL_POOLS
+           if f not in ("meta", "last_leaf_min")}
+    stk["meta"] = arrs["meta"].reshape(1, 2)
+    stk["last_leaf_min"] = arrs["last_leaf_min"].reshape(1)
+    stk["bounds"] = arrs["last_leaf_min"].new_empty(0)
+    return stk
 
 
-def _row_search(pool: torch.Tensor, rows: torch.Tensor, q: torch.Tensor):
+def _at(sid, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Flat row of shard ``sid``'s entry ``idx`` in a stacked pool of ``n``
+    rows a shard, with the reference's per-shard ``mode="clip"``: the index
+    clamps inside the shard's own pool, then offsets by ``sid * n`` (the TPU
+    kernel's ``sid * Nm + clip(node, 0, Nm - 1)``).  One shard (``sid`` is
+    None) needs no offset.  Pools of one shape share the row."""
+    idx = idx.clamp(0, n - 1)
+    return idx if sid is None else sid * n + idx
+
+
+def _row_search(keys: torch.Tensor, rows: torch.Tensor, q: torch.Tensor):
     """Whole-row rank: per query, the count of row ``rows[i]`` keys < q."""
-    blk = _take(pool, rows)
+    blk = keys[rows]
     return blk, (blk < q[:, None]).sum(1, dtype=torch.int32)
 
 
@@ -64,45 +83,66 @@ def _pick(mat: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return mat.gather(1, cols.long()[:, None])[:, 0]
 
 
-def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
-                 height: int):
-    """Plain PyTorch version of K1: (payload int64 bits, found bool, leaf
-    row int32), operation for operation the reference's ``lookup_batch``
-    followed by the overlay merge of ``lookup_batch_overlay``."""
-    Q = q.shape[0]
-    root, last_row = arrs["meta"][0], arrs["meta"][1]
-    done = (q >= arrs["last_leaf_min"]) | (root < 0)
-    node = root.clamp(min=0).expand(Q)
+def lookup_sharded_plain(stk: dict, ovr: dict | None, q: torch.Tensor,
+                         height: int):
+    """Plain PyTorch version of K1's sharded form: (payload int64 bits,
+    found bool, global leaf row int32, shard id int32) over the stacked
+    ``(S, ...)`` pools, operation for operation the reference's
+    ``lookup_batch_sharded`` (a per-shard ``lookup_batch``; the global row
+    is ``sid * L + leaf``) followed by the overlay merge of
+    ``lookup_batch_sharded_overlay``."""
+    S = stk["meta"].shape[0]
+    # every pool as one flat (S * n, ...) view, indexed through _at
+    fl = {f: stk[f].flatten(0, 1) for f in _KERNEL_POOLS
+          if f not in ("meta", "last_leaf_min")}
+    n = {f: stk[f].shape[1] for f in fl}
+    if S == 1:
+        # an empty boundary table sends every query to shard 0: no route,
+        # no per-query meta gathers, no offsets
+        sid = None
+        root, last_row = stk["meta"][0, 0], stk["meta"][0, 1]
+        lmin = stk["last_leaf_min"][0]
+    else:
+        # route: count(bounds < q) over the (S-1,) inclusive upper bounds,
+        # the TPU kernel's compare-and-sum (== searchsorted(bounds, q,
+        # "left"))
+        sid = (stk["bounds"][None, :] < q[:, None]).sum(1)
+        root, last_row = stk["meta"][sid, 0], stk["meta"][sid, 1]
+        lmin = stk["last_leaf_min"][sid]
+    done = (q >= lmin) | (root < 0)
+    node = root.clamp(min=0).expand(q.shape)
     leaf = torch.where(done, last_row, torch.full_like(q, -1,
                                                       dtype=torch.int32))
     qf = key_f64(q)
-    S = arrs["slot_tag"].shape[0]
-    pc = arrs["pa_ptrs"].shape[1]
-    bc = arrs["bt_ptrs"].shape[1]
+    pc = stk["pa_ptrs"].shape[2]
+    bc = stk["bt_ptrs"].shape[2]
     for _ in range(height):
-        base = _take(arrs["node_base"], node)
-        fanout = _take(arrs["node_fanout"], node)
-        slope = _take(arrs["node_slope"], node)
-        inter = _take(arrs["node_intercept"], node)
-        overflow = _take(arrs["node_overflow_slot"], node)
+        ni = _at(sid, node, n["node_base"])
+        base = fl["node_base"][ni]
+        fanout = fl["node_fanout"][ni]
+        slope = fl["node_slope"][ni]
+        inter = fl["node_intercept"][ni]
+        overflow = fl["node_overflow_slot"][ni]
         pred = torch.minimum(
             torch.clamp(torch.floor(slope * qf + inter) - 1, min=0.0),
             (fanout - 1).to(torch.float64)).to(torch.int32)
-        s = _take(arrs["next_occ"], base + pred)
+        s = fl["next_occ"][_at(sid, base + pred, n["next_occ"])]
         s = torch.where(s < 0, overflow, s)
         for _ in range(STALE_STEPS):
-            sc = s.clamp(0, S - 1)
-            stale = (s >= 0) & (arrs["slot_key"][sc] < q)
-            s = torch.where(stale, arrs["succ_slot"][sc], s)
+            si = _at(sid, s, n["slot_key"])
+            stale = (s >= 0) & (fl["slot_key"][si] < q)
+            s = torch.where(stale, fl["succ_slot"][si], s)
         ended = s < 0
-        sc = s.clamp(0, S - 1)
-        tag = arrs["slot_tag"][sc]
-        ptr = arrs["slot_ptr"][sc]
+        si = _at(sid, s, n["slot_tag"])
+        tag = fl["slot_tag"][si]
+        ptr = fl["slot_ptr"][si]
         prow = ptr.clamp(min=0)
-        _, pa_pos = _row_search(arrs["pa_keys"], prow, q)
-        pa_hit = _pick(_take(arrs["pa_ptrs"], prow), pa_pos % pc)
-        _, bt_pos = _row_search(arrs["bt_keys"], prow, q)
-        bt_hit = _pick(_take(arrs["bt_ptrs"], prow), bt_pos % bc)
+        pi = _at(sid, prow, n["pa_keys"])
+        _, pa_pos = _row_search(fl["pa_keys"], pi, q)
+        pa_hit = _pick(fl["pa_ptrs"][pi], pa_pos % pc)
+        bi = _at(sid, prow, n["bt_keys"])
+        _, bt_pos = _row_search(fl["bt_keys"], bi, q)
+        bt_hit = _pick(fl["bt_ptrs"][bi], bt_pos % bc)
         is_mixed = (tag == TAG_MIXED) & ~ended
         step_leaf = torch.where(
             ended, last_row, torch.where(
@@ -115,56 +155,119 @@ def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
         node = torch.where(~done & is_mixed, ptr, node)
 
     leaf = leaf.clamp(min=0)
-    blk, pos = _row_search(arrs["leaf_keys"], leaf, q)
+    li = _at(sid, leaf, n["leaf_keys"])
+    blk, pos = _row_search(fl["leaf_keys"], li, q)
     cap = blk.shape[1]
     posm = pos % cap
     found = (pos < cap) & (_pick(blk, posm) == q)
-    pay = _pick(_take(arrs["leaf_pay"], leaf), posm)
+    pay = _pick(fl["leaf_pay"][li], posm)
     if ovr is not None:
         opay, hit, tomb = overlay_probe_plain(ovr, q)
         pay = torch.where(hit & ~tomb, opay, pay)
         found = torch.where(hit, ~tomb, found)
-    return torch.where(found, pay, 0), found, leaf
+    if sid is None:
+        return torch.where(found, pay, 0), found, leaf, torch.zeros_like(leaf)
+    gleaf = (sid * n["leaf_keys"] + leaf).to(torch.int32)
+    return torch.where(found, pay, 0), found, gleaf, sid.to(torch.int32)
+
+
+def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
+                 height: int):
+    """Plain PyTorch version of K1: (payload int64 bits, found bool, leaf
+    row int32), operation for operation the reference's ``lookup_batch``
+    followed by the overlay merge of ``lookup_batch_overlay`` — the
+    sharded form over the mirror seen as a one-shard stack."""
+    pay, found, leaf, _ = lookup_sharded_plain(_as_stack(arrs), ovr, q,
+                                               height)
+    return pay, found, leaf
 
 
 # ------------------------------------------------------------------ wrapper
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fused_lookup_launch
     fn.argtypes = ([ctypes.c_void_p] * len(_KERNEL_POOLS)
-                   + [ctypes.c_int] * 8          # pool sizes
-                   + [ctypes.c_void_p, ctypes.c_int,    # overlay pack, cap
+                   + [ctypes.c_int] * 8          # per-shard pool sizes
+                   + [ctypes.c_int, ctypes.c_void_p,    # shards, bounds
+                      ctypes.c_void_p, ctypes.c_int,    # overlay pack, cap
                       ctypes.c_void_p, ctypes.c_int,    # queries, count
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p,                  # pay, found, leaf, sid
                       ctypes.c_int, ctypes.c_int,       # height, stale
                       ctypes.c_void_p])                 # stream
     fn.restype = ctypes.c_int
 
 
-def _check_operands(arrs: dict, ovr: dict | None, q: torch.Tensor) -> None:
+def _check_operands(stk: dict, ovr: dict | None, q: torch.Tensor) -> None:
     dev = q.device
     if q.dtype != torch.int64 or q.dim() != 1 or not q.is_contiguous():
         raise ValueError("queries must be a contiguous 1-D biased int64 "
                          "tensor")
-    for f in _KERNEL_POOLS:
-        t = arrs[f]
-        if t.device != dev or t.dtype != POOL_DTYPES[f] \
-                or not t.is_contiguous():
-            raise ValueError(f"mirror pool {f!r}: want contiguous "
-                             f"{POOL_DTYPES[f]} on {dev}, got {t.dtype} "
-                             f"on {t.device}")
+    S = stk["meta"].shape[0]
+    for f in _KERNEL_POOLS + ["bounds"]:
+        t = stk[f]
+        want = POOL_DTYPES.get(f, torch.int64)
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"mirror pool {f!r}: want contiguous {want} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+        if f != "bounds" and (t.dim() < 1 or t.shape[0] != S):
+            raise ValueError(f"mirror pool {f!r} must lead with the {S} "
+                             "shards")
     for keys, ptrs in (("pa_keys", "pa_ptrs"), ("bt_keys", "bt_ptrs"),
                        ("leaf_keys", "leaf_pay")):
-        if arrs[keys].dim() != 2 or arrs[keys].shape != arrs[ptrs].shape:
-            raise ValueError(f"{keys}/{ptrs} must be equal 2-D shapes")
-    if arrs["meta"].numel() != 2 or arrs["last_leaf_min"].numel() != 1:
-        raise ValueError("meta must hold (root, last_row), last_leaf_min "
-                         "one key")
+        if stk[keys].dim() != 3 or stk[keys].shape != stk[ptrs].shape:
+            raise ValueError(f"{keys}/{ptrs} must be equal (S, rows, cap) "
+                             "shapes")
+    if stk["meta"].shape != (S, 2) or stk["last_leaf_min"].shape != (S,) \
+            or stk["bounds"].shape != (S - 1,):
+        raise ValueError("meta must be (S, 2) (root, last row), "
+                         "last_leaf_min (S,), bounds (S-1,)")
     if ovr is not None:
         p = ovr["ov_pack"]
         if p.device != dev or p.dtype != torch.int64 or p.dim() != 2 \
                 or p.shape[0] != 3 or p.shape[1] < 1 or not p.is_contiguous():
             raise ValueError("overlay pack must be a contiguous (3, cap) "
                              f"int64 tensor on {dev}")
+
+
+def _launch(stk: dict, ovr: dict | None, q: torch.Tensor, height: int,
+            with_sid: bool):
+    """One launch of ``csrc/fused_lookup.cu`` over the stacked pools:
+    (payload, found, global leaf row[, shard id])."""
+    _check_operands(stk, ovr, q)
+    lib = _build.load("fused_lookup", _bind)
+    Q, dev = q.shape[0], q.device
+    pay = torch.empty(Q, dtype=torch.int64, device=dev)
+    found = torch.empty(Q, dtype=torch.bool, device=dev)
+    leaf = torch.empty(Q, dtype=torch.int32, device=dev)
+    sid = torch.empty(Q, dtype=torch.int32, device=dev) if with_sid else None
+    out = (pay, found, leaf) + ((sid,) if with_sid else ())
+    if Q == 0:
+        return out, False
+    sizes = (stk["slot_tag"].shape[1], stk["node_base"].shape[1],
+             *stk["pa_keys"].shape[1:], *stk["bt_keys"].shape[1:],
+             *stk["leaf_keys"].shape[1:])
+    S = stk["meta"].shape[0]
+    bounds = stk["bounds"]
+    ov = ovr["ov_pack"] if ovr is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.fused_lookup_launch(
+        *[stk[f].data_ptr() for f in _KERNEL_POOLS], *sizes,
+        S, bounds.data_ptr() if S > 1 else None,
+        ov.data_ptr() if ov is not None else None,
+        ov.shape[1] if ov is not None else 0,
+        q.data_ptr(), Q, pay.data_ptr(), found.data_ptr(), leaf.data_ptr(),
+        sid.data_ptr() if with_sid else None,
+        int(height), STALE_STEPS, stream)
+    _build.check(err, "fused_lookup")
+    return out, True
+
+
+def _on_card(q: torch.Tensor, name: str) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return True
 
 
 def fused_lookup(arrs: dict, ovr: dict | None, q: torch.Tensor,
@@ -175,32 +278,30 @@ def fused_lookup(arrs: dict, ovr: dict | None, q: torch.Tensor,
 
     CPU tensors run :func:`lookup_plain`; CUDA tensors launch K1 (counted in
     ``fused_lookup.launches``)."""
-    if q.device.type == "cpu":
+    if not _on_card(q, "fused_lookup"):
         return lookup_plain(arrs, ovr, q, height)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_lookup runs on cpu or cuda, not {q.device}")
-    _check_operands(arrs, ovr, q)
-    lib = _build.load("fused_lookup", _bind)
-    Q = q.shape[0]
-    pay = torch.empty(Q, dtype=torch.int64, device=q.device)
-    found = torch.empty(Q, dtype=torch.bool, device=q.device)
-    leaf = torch.empty(Q, dtype=torch.int32, device=q.device)
-    if Q == 0:
-        return pay, found, leaf
-    sizes = (arrs["slot_tag"].shape[0], arrs["node_base"].shape[0],
-             *arrs["pa_keys"].shape, *arrs["bt_keys"].shape,
-             *arrs["leaf_keys"].shape)
-    ov = ovr["ov_pack"] if ovr is not None else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.fused_lookup_launch(
-        *[arrs[f].data_ptr() for f in _KERNEL_POOLS], *sizes,
-        ov.data_ptr() if ov is not None else None,
-        ov.shape[1] if ov is not None else 0,
-        q.data_ptr(), Q, pay.data_ptr(), found.data_ptr(), leaf.data_ptr(),
-        int(height), STALE_STEPS, stream)
-    _build.check(err, "fused_lookup")
-    fused_lookup.launches += 1
-    return pay, found, leaf
+    out, launched = _launch(_as_stack(arrs), ovr, q, height, False)
+    fused_lookup.launches += launched
+    return out
+
+
+def fused_lookup_sharded(stk: dict, ovr: dict | None, q: torch.Tensor,
+                         height: int):
+    """Batched point read over the stacked shard mirror ``stk``
+    (``core.lookup.stacked_device_arrays``) merged with the global overlay
+    ``ovr`` (None: snapshot only): each query routes to its shard by
+    ``count(bounds < q)`` and reads that shard's pools.  Returns (payload
+    int64 bits, found bool, global leaf row ``sid * L + leaf`` int32, shard
+    id int32).
+
+    CPU tensors run :func:`lookup_sharded_plain`; CUDA tensors launch K1
+    with its shard route (counted in ``fused_lookup_sharded.launches``)."""
+    if not _on_card(q, "fused_lookup_sharded"):
+        return lookup_sharded_plain(stk, ovr, q, height)
+    out, launched = _launch(stk, ovr, q, height, True)
+    fused_lookup_sharded.launches += launched
+    return out
 
 
 fused_lookup.launches = 0
+fused_lookup_sharded.launches = 0

@@ -468,3 +468,135 @@ def test_serve_engine_on_card_matches_cpu(cuda, trace):
                                    atol=1e-5, rtol=1e-5)
     assert engines[0].pool_pages.free == engines[1].pool_pages.free
     assert len(engines[1].completed) == len(reqs)
+
+
+# ------------------------------------------------------------ the sharded path
+def _stack(cuda, name, live, slots, n=50_000):
+    from repro_torch.core import partition_bulkload
+    from repro_torch.core.device_index import stack_device_indexes
+    keys = make_dataset(name, n, seed=1)
+    part = partition_bulkload(keys, payloads_for(keys), live,
+                              cfg=AulidConfig(**GEOMS["512b"]))
+    sdi = stack_device_indexes([build_device_index(sh) for sh in part.shards],
+                               part.bounds, min_shards=slots)
+    return keys, part, sdi, port.stacked_device_arrays(sdi, device=cuda)
+
+
+@pytest.mark.parametrize("name,live,slots",
+                         [("covid", 1, 0), ("osm", 3, 0), ("planet", 5, 8),
+                          ("genome", 8, 0)],
+                         ids=["covid-s1", "osm-s3", "planet-s5of8",
+                              "genome-s8"])
+def test_fused_lookup_sharded_kernel_matches_plain(cuda, name, live, slots):
+    """K1's shard route == its plain version: edge keys, every bound and
+    its neighbours (placeholder UINT64_MAX bounds included), with and
+    without an overlay; routing equals the host partition's."""
+    keys, part, sdi, stk = _stack(cuda, name, live, slots)
+    h = max(sdi.max_inner_height, 3)
+    rng = np.random.default_rng(5)
+    near = [int(b) + d for b in sdi.bounds for d in (-1, 0, 1)
+            if 0 <= int(b) + d <= 2**64 - 1]
+    qn = np.concatenate([_queries(keys, rng),
+                         np.array(near, dtype=np.uint64)])
+    q = keys_to_tensor(qn, cuda)
+    ov = DeltaOverlay()
+    for k in rng.integers(0, 2**62, 200, dtype=np.uint64):
+        ov.record_insert(int(k), int(k) % 1009)
+    for k in rng.choice(keys, 100):
+        ov.record_delete(int(k))
+    for ovr in (None, port.overlay_arrays(ov, cuda)):
+        n = k1.fused_lookup_sharded.launches
+        got = k1.fused_lookup_sharded(stk, ovr, q, h)
+        assert k1.fused_lookup_sharded.launches == n + 1
+        _same(got, k1.lookup_sharded_plain(stk, ovr, q, h))
+        assert (got[3].cpu().numpy() == part.shard_of_batch(qn)).all()
+        assert got[1][:3000].any()
+
+
+def test_overlay_merge_stacked_kernel_matches_plain(cuda):
+    """K2's stacked form == its plain version, rows of every kind, and a
+    row of the served shape's bytes (Ca = cap_out = 2^21, Cb = 64)."""
+    rng = np.random.default_rng(8)
+    pool = rng.choice(2**60, size=400_000, replace=False).astype(np.uint64)
+    rows = [(_pack(rng, [], 4096), _pack(rng, pool[:300], 512)),
+            (_pack(rng, pool[:512], 4096), _pack(rng, pool[:512], 512)),
+            (_pack(rng, pool[:3000], 4096), _pack(rng, pool[2900:3300], 512)),
+            (_pack(rng, pool[:4000], 4096), _pack(rng, pool[3900:4400], 512)),
+            (_pack(rng, pool[:100], 4096), _pack(rng, [], 512))]
+    for cap_out in (4096, 8192):
+        pa = torch.stack([port.overlay_from_numpy(a, cuda)["ov_pack"]
+                          for a, _ in rows])
+        pb = torch.stack([port.overlay_from_numpy(b, cuda)["ov_pack"]
+                          for _, b in rows])
+        n = k2.overlay_merge_stacked.launches
+        got = k2.overlay_merge_stacked(pa, pb, cap_out)
+        assert k2.overlay_merge_stacked.launches == n + 1
+        exp = k2.merge_overlay_stacked_torch(pa, pb, cap_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exp)
+    big = [(_pack(rng, pool[i * 40_000:(i + 1) * 40_000], 1 << 21),
+            _pack(rng, pool[(i + 1) * 40_000 - 30:(i + 1) * 40_000 + 34], 64))
+           for i in range(3)]
+    pa = torch.stack([port.overlay_from_numpy(a, cuda)["ov_pack"]
+                      for a, _ in big])
+    pb = torch.stack([port.overlay_from_numpy(b, cuda)["ov_pack"]
+                      for _, b in big])
+    got = k2.overlay_merge_stacked(pa, pb, 1 << 21)
+    exp = k2.merge_overlay_stacked_torch(pa, pb, 1 << 21)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+def _settle(eng):
+    """Wait for the engine's background builds, so that every engine
+    installs them at the same step boundary whatever its thread's speed."""
+    for fut in list(eng._inflight.values()):
+        fut.result()
+    if eng._repart_inflight is not None:
+        eng._repart_inflight[-1].result()
+
+
+def test_sharded_engine_on_card_matches_cpu(cuda):
+    """``ShardedIndexEngine`` on the card (K1's shard route, K2) == on the
+    CPU (their plain versions), request for request, through background
+    compactions and a forced split and merge."""
+    from repro_torch.core import partition_bulkload
+    from repro_torch.serving import ShardedIndexEngine
+    keys = make_dataset("osm", 6_000, seed=1)
+    rng = np.random.default_rng(3)
+    engines = [ShardedIndexEngine(
+        partition_bulkload(keys, payloads_for(keys), 4,
+                           cfg=AulidConfig(**GEOMS["512b"])),
+        device=device, gamma=0.01, repartition=True, split_ratio=1e9)
+        for device in ("cpu", cuda)]
+    n1, n2 = k1.fused_lookup_sharded.launches, k2.overlay_merge.launches
+    outs = [[], []]
+    for i in range(10):
+        fresh = rng.integers(1, 2**60, 30, dtype=np.uint64)
+        step = ([("insert", int(k), int(k) % 91) for k in fresh]
+                + [("delete", int(k)) for k in rng.choice(keys, 8)]
+                + [("get", int(k)) for k in rng.choice(keys, 60)]
+                + [("get", int(k)) for k in fresh[:10]]
+                + [("scan", int(k), 0, 40) for k in rng.choice(keys, 4)]
+                + [("scan", int(b) - 2, 0, 40)
+                   for b in engines[0].part.bounds[:2]])
+        for out, eng in zip(outs, engines):
+            reqs = [eng.submit(*a) for a in step]
+            eng.step()
+            out += [(r.op, r.key, tuple(r.result) if isinstance(r.result, list)
+                     else r.result) for r in reqs]
+            if i in (4, 7):
+                eng.drain_compactions()
+                assert eng.request_split(0) if i == 4 else \
+                    eng.request_merge(1)
+            _settle(eng)
+    for e in engines:
+        e.drain_compactions()
+    assert outs[0] == outs[1]
+    st = [e.stats() for e in engines]
+    assert st[1]["read_backend"] == "cuda"
+    for k in ("compactions", "swaps", "splits", "merges", "num_shards"):
+        assert st[0][k] == st[1][k], k
+    assert st[1]["swaps"] >= 1 and st[1]["splits"] == st[1]["merges"] == 1
+    assert k1.fused_lookup_sharded.launches > n1
+    assert k2.overlay_merge.launches > n2

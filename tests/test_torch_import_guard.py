@@ -59,13 +59,34 @@ def test_engine_runs_on_the_card_unless_told_otherwise():
     assert resolve("cpu") == torch.device("cpu")
 
 
+def test_sharded_engine_runs_on_the_card_unless_told_otherwise():
+    from repro_torch.core import partition_bulkload
+    from repro_torch.serving import ShardedIndexEngine
+
+    keys = np.arange(1, 2000, dtype=np.uint64) * np.uint64(7)
+    part = partition_bulkload(keys, keys + np.uint64(1), 3)
+    if torch.cuda.is_available():
+        eng = ShardedIndexEngine(part)
+        assert eng.device.type == "cuda"
+        assert eng.stats()["read_backend"] == "cuda"
+        assert eng.stk["leaf_keys"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ShardedIndexEngine(part)
+    eng = ShardedIndexEngine(part, device="cpu")
+    assert eng.stats()["read_backend"] == "torch"
+    assert eng.stk["leaf_keys"].device.type == "cpu"
+
+
 def test_cuda_kernels_refuse_without_a_card():
     """A wrapper given a tensor on a device other than cpu or cuda raises;
     it never computes there through the plain version."""
-    from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.fused_lookup.ops import (fused_lookup,
+                                                      fused_lookup_sharded)
     from repro_torch.kernels.inner_probe.ops import probe_level
     from repro_torch.kernels.leaf_search.ops import leaf_search
-    from repro_torch.kernels.overlay_merge.ops import overlay_merge
+    from repro_torch.kernels.overlay_merge.ops import (overlay_merge,
+                                                       overlay_merge_stacked)
     from repro_torch.kernels.overlay_probe.ops import overlay_probe
     from repro_torch.kernels.paged_attention.ops import paged_attention
     q = torch.zeros(4, dtype=torch.int64, device="meta")
@@ -73,7 +94,11 @@ def test_cuda_kernels_refuse_without_a_card():
     with pytest.raises(ValueError):
         fused_lookup({}, None, q, 3)
     with pytest.raises(ValueError):
+        fused_lookup_sharded({}, None, q, 3)
+    with pytest.raises(ValueError):
         overlay_merge(pack, q.reshape(1, 4), 4)
+    with pytest.raises(ValueError):
+        overlay_merge_stacked(pack[None], pack[None], 4)
     with pytest.raises(ValueError):
         overlay_probe({"ov_pack": pack}, q)
     with pytest.raises(ValueError):

@@ -221,3 +221,29 @@ def test_port_datasets_equal_reference(name, n):
     exp = make_dataset(name, n, seed=5)
     assert got.dtype == exp.dtype and np.array_equal(got, exp)
     assert np.array_equal(port_wl.payloads_for(got), payloads_for(exp))
+
+
+def test_time_plain_compares_trees_on_cpu(capsys):
+    """``repro_torch.launch.time_plain`` loads each ``--tree`` as a package
+    of its own, checks that their plain reads agree, and prints one reading
+    per round, tree and overlay case, the second round in reverse order."""
+    import json
+    import pathlib
+
+    from repro_torch.launch import time_plain
+
+    src = str(pathlib.Path(k1.__file__).resolve().parents[3])
+    assert time_plain.main(["--device", "cpu", "--keys", "20000", "--reps",
+                            "1", "--tree", f"a={src}",
+                            "--tree", f"b={src}"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    head, rows = lines[0], lines[1:]
+    assert head["device"] == "cpu" and head["trees"] == ["a", "b"]
+    assert [(r["round"], r["tree"]) for r in rows] == [
+        (0, "a"), (0, "a"), (0, "b"), (0, "b"),
+        (1, "b"), (1, "b"), (1, "a"), (1, "a")]
+    assert all(r["wall_ms"] > 0 and "device_ms" not in r for r in rows)
+    ops = {(r["tree"], r["case"]): r["aten_ops"] for r in rows}
+    assert ops[("a", "overlay")] == ops[("b", "overlay")] \
+        > ops[("a", "no overlay")] == ops[("b", "no overlay")] > 0

@@ -4,9 +4,10 @@ The same random sorted packs (numpy, from a seed) go through the
 reference's ``merge_overlay_pack_jnp``, its Pallas kernel in interpret mode
 (``overlay_merge_pack``) and the port's plain PyTorch version of K2 on the
 CPU.  Cases: empty pack, all-padding batch, all-overlap, tombstones, cap
-growth, random mixes.  The live-prefix invariant the CUDA kernel's
-rank arithmetic rests on (padding sorts last, so live entries are a prefix)
-is asserted on every input and output.  (The CUDA kernel is held to its
+growth, random mixes; the stacked (S, 3, C) form row by row against the
+reference's ``overlay_merge_pack_stacked``.  The live-prefix invariant the
+CUDA kernel's rank arithmetic rests on (padding sorts last, so live entries
+are a prefix) is asserted on every input and output.  (The CUDA kernel is held to its
 plain version in ``test_torch_gpu.py``.)
 """
 import numpy as np
@@ -17,6 +18,7 @@ pytest.importorskip("jax")   # the reference; absent where only the port runs
 
 from repro.core.lookup import merge_overlay_pack_jnp
 from repro.kernels.overlay_merge import overlay_merge_pack
+from repro.kernels.overlay_merge.ops import overlay_merge_pack_stacked
 
 from repro_torch.core import lookup as port
 from repro_torch.core.keys import BIASED_MAX, bits_from_tensor
@@ -120,3 +122,50 @@ def test_merge_overlay_pack_uploads_only_the_batch():
 def test_empty_overlay_pack():
     p = port.empty_overlay_pack(16, "cpu")
     assert (p[0] == BIASED_MAX).all() and (p[1:] == 0).all()
+
+
+def _stacked_cases():
+    """(S, 3, Ca) packs and (S, 3, Cb) batches, rows of every kind: empty
+    pack, empty batch, all-overlap, tombstones, cap growth, random."""
+    rng = np.random.default_rng(21)
+    shared = rng.choice(2**50, size=64, replace=False).astype(np.uint64)
+    rows = [(_pack(rng, 0, 32), _pack(rng, 12, 16)),
+            (_pack(rng, 20, 32), _pack(rng, 0, 16)),
+            (_pack(rng, 0, 32, shared[:16]), _pack(rng, 0, 16, shared[:16])),
+            (_pack(rng, 28, 32), _pack(rng, 16, 16)),
+            (_pack(rng, 0, 32, shared[16:40]),
+             _pack(rng, 0, 16, shared[30:46])),
+            (_pack(rng, 0, 32), _pack(rng, 0, 16)),
+            (_pack(rng, 31, 32), _pack(rng, 9, 16)),
+            (_pack(rng, 5, 32), _pack(rng, 16, 16))]
+    yield "s8-mixed", np.stack([a for a, _ in rows]), \
+        np.stack([b for _, b in rows]), 64
+    yield "s1", rows[3][0][None], rows[3][1][None], 64
+    yield "s3-empty", np.stack([_pack(rng, 0, 8)] * 3), \
+        np.stack([_pack(rng, 0, 8)] * 3), 8
+
+
+STACKED = list(_stacked_cases())
+
+
+@pytest.mark.parametrize("name,a,b,cap_out", STACKED,
+                         ids=[c[0] for c in STACKED])
+def test_stacked_merge_matches_reference(name, a, b, cap_out):
+    """K2's stacked form == the reference's ``overlay_merge_pack_stacked``
+    (its vmapped oracle and its Pallas kernel in interpret mode), each row
+    merged on its own."""
+    exp = np.asarray(overlay_merge_pack_stacked(a, b, cap_out, use_ref=True))
+    assert (np.asarray(overlay_merge_pack_stacked(a, b, cap_out,
+                                                  interpret=True))
+            == exp).all()
+    pa = torch.stack([port.overlay_from_numpy(r, "cpu")["ov_pack"]
+                      for r in a])
+    pb = torch.stack([port.overlay_from_numpy(r, "cpu")["ov_pack"]
+                      for r in b])
+    got = k2.overlay_merge_stacked(pa, pb, cap_out)
+    assert got.shape == (a.shape[0], 3, cap_out) and got.dtype == torch.int64
+    for s in range(a.shape[0]):
+        assert (port.overlay_from_numpy(exp[s], "cpu")["ov_pack"]
+                == got[s]).all(), f"row {s}"
+        _live_prefix(exp[s])
+        assert torch.equal(got[s], k2.overlay_merge(pa[s], pb[s], cap_out))
