@@ -8,7 +8,9 @@ printed):
 
 1. card and build: the ``nvidia-smi`` name/power-limit line; all six CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel) with ptxas' register and spill report;
+   parallel) with ptxas' register and spill report (K1's registers,
+   static shared memory and spills under ``ptxas`` in its ``kernels``
+   entry, its shared-memory plan under ``plan``);
 2. kernel == plain version, exactly, on the card: K1 ``fused_lookup`` on
    four 200k-key mirrors of the scaled 512-B geometry and a 20M-key ``osm``
    mirror of the default geometry, each without and with an overlay of
@@ -81,6 +83,8 @@ printed):
    every request complete and every page reclaimed; the reference's
    empty-slot defect (ROADMAP Queue 3) counted; tokens/s, step times and
    their split into host work, translation, layers and head, peak memory;
+   K1 held and timed on the page-table mirror and translation batch of
+   step 200 (Q = 256, no overlay: the ``lm`` key of K1's entry);
    then, with a fresh batch in every slot, device time by kernel over 8
    steady steps at rows of 89-96 tokens (``torch.profiler``; K6's split
    and combine kernels summed) and the device's busy share;
@@ -109,7 +113,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak (NVIDIA data sheet)
 # the main path: the AULID paper's evaluation size (arXiv 2306.02604, §5.1)
 MAIN_KEYS = 200_000_000
 MAIN_STEPS = 50
@@ -159,6 +162,7 @@ LM_PROMPT = (32, 256)            # prompt lengths, uniform, inclusive
 LM_MAX_NEW = 16
 LM_HELD_STEPS = 4                # steps whose every K6 launch is held
 LM_PROFILED_STEPS = 8            # steps traced by torch.profiler
+LM_K1_STEP = 200                 # the step whose translation K1 is timed on
 # the traced steps' rows hold 89-96 tokens, about the served run's mean
 LM_PROFILE_PROMPT, LM_PROFILE_WARM = 128, 88
 K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -166,6 +170,12 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # and the served shape: 8 rows of 89-96 tokens over the engine's pool
 K6_ROWS, K6_NP, K6_POOL = 16, 256, 4096
 K6_SERVED_ROWS, K6_SERVED_LENS = 8, (89, 96)
+
+
+def bound_ms(nbytes: int) -> float:
+    """The time to move ``nbytes`` at the card's HBM peak, in ms."""
+    from repro_torch.kernels.fused_lookup.ops import HBM_BYTES_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def log(*a) -> None:
@@ -180,7 +190,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> None:
+def build_kernels() -> dict:
+    """Build every kernel (one nvcc each, in parallel), log ptxas' report
+    and return K1's: registers, static shared memory and spills."""
+    import re
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build(*KERNELS)
@@ -189,6 +202,15 @@ def build_kernels() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
+    text = _build.BUILD_LOG["fused_lookup"]
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+    smem = re.search(r"(\d+) bytes smem", text)
+    return {"registers": int(re.search(r"Used (\d+) registers",
+                                       text).group(1)),
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "spill_store_bytes": int(spill.group(1)),
+            "spill_load_bytes": int(spill.group(2))}
 
 
 # ------------------------------------------------------------------- phase 2
@@ -556,7 +578,7 @@ def k2_stacked_parity(par: Parity, dev, card: str) -> dict:
            "live": live, "batch_live": nb,
            "ms": float(np.median(km)), "mean_ms": float(km.mean()),
            "plain_ms": float(np.median(pm)),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
            "library_ms": None}
     log(f"k2 stacked parity S={SHARDS} Ca=cap_out={ca} Cb={cb}: exact; "
         "timed: " + json.dumps(out))
@@ -914,6 +936,7 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
                                                       lookup_sharded_plain)
     from repro_torch.kernels.overlay_merge.ops import (overlay_merge,
                                                        overlay_merge_stacked)
+    from repro_torch.kernels.fused_lookup.ops import k1_bytes, k1_walks
     from repro_torch.serving import ShardedIndexEngine, pad_queries
 
     n = keys.shape[0]
@@ -997,16 +1020,13 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
     pm = time_cuda(lambda: lookup_sharded_plain(stk, ovr, q, h), 10, flush,
                    PLAIN_HOLD_CYCLES)
     rows = int(torch.unique(got[2]).numel())
-    C = stk["leaf_keys"].shape[2]
-    # K1's bytes (queries in; payload, found, leaf and shard id out; each
-    # distinct leaf row's keys once; a payload word, an inner slot entry
-    # and an overlay key a query) plus the boundary table
-    nbytes = Q * 8 + Q * 17 + rows * C * 8 + Q * 8 + Q * 28 \
-        + stk["bounds"].numel() * 8
-    out["k1"] = {"Q": Q, "height": h, "leaf_rows": rows,
+    walks = k1_walks(stk, q)
+    nbytes = k1_bytes(Q, walks, rows, stk["leaf_keys"].shape[2], True, True,
+                      stk["bounds"].numel())
+    out["k1"] = {"Q": Q, "height": h, "leaf_rows": rows, "walks": walks,
                  "ms": float(np.median(km)), "mean_ms": float(km.mean()),
                  "plain_ms": float(np.median(pm)),
-                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_ms": bound_ms(nbytes),
                  "bound_by": "bytes", "library_ms": None,
                  "launches": launches["fused_lookup_sharded"]}
     log(f"k1 sharded parity sharded path ({n}-key stack, Q={Q}, overlay "
@@ -1167,7 +1187,9 @@ def measure(mp: dict, par: Parity, dev) -> list:
     from repro_torch.core.keys import (BIASED_MAX, keys_from_tensor,
                                        keys_to_tensor)
     from repro_torch.core.lookup import overlay_from_numpy
-    from repro_torch.kernels.fused_lookup.ops import fused_lookup, lookup_plain
+    from repro_torch.kernels.fused_lookup.ops import (
+        _as_stack, _launch_plan, fused_lookup, k1_bytes, k1_walks,
+        lookup_plain)
     from repro_torch.kernels.overlay_merge.ops import (
         merge_overlay_pack_torch, overlay_merge)
     from repro_torch.serving import pad_queries
@@ -1191,10 +1213,8 @@ def measure(mp: dict, par: Parity, dev) -> list:
     leaf = got[2]
     C = arrs["leaf_keys"].shape[1]
     rows = int(torch.unique(leaf).numel())
-    # bytes K1 must move: queries in, outputs out, each distinct leaf row's
-    # keys once, one payload word per query, and at least one inner slot
-    # entry (next_occ, key, tag, ptr) and one overlay key per query
-    k1_bytes = Q * 8 + Q * 13 + rows * C * 8 + Q * 8 + Q * 28
+    walks = k1_walks(arrs, q)
+    plan = _launch_plan(_as_stack(arrs))
     # K2 at the main path's shape: the served pack and a 512-entry batch
     pack = ovr["ov_pack"]
     live = int((pack[0] != BIASED_MAX).sum())
@@ -1230,16 +1250,17 @@ def measure(mp: dict, par: Parity, dev) -> list:
          "max_abs_err": par.err["fused_lookup"],
          "ms": float(np.median(k1_ms)), "mean_ms": float(k1_ms.mean()),
          "plain_ms": float(np.median(k1_plain)),
-         "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3,
+         "bound_ms": bound_ms(k1_bytes(Q, walks, rows, C, True)),
          "bound_by": "bytes", "library_ms": None, "parity": "exact",
-         "cases": par.cases["fused_lookup"]},
+         "cases": par.cases["fused_lookup"], "walks": walks,
+         "plan": plan._asdict()},
         {"name": "overlay_merge", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES,
          "launches": mp["launches"]["overlay_merge"],
          "max_abs_err": par.err["overlay_merge"],
          "ms": float(np.median(k2_ms)), "mean_ms": float(k2_ms.mean()),
          "plain_ms": float(np.median(k2_plain)),
-         "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
+         "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None, "parity": "exact",
          "cases": par.cases["overlay_merge"]},
     ]
@@ -1377,7 +1398,7 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
             "launches": launches[k], "max_abs_err": par.err[k],
             "ms": float(np.median(km)), "mean_ms": float(km.mean()),
             "plain_ms": float(np.median(pm)),
-            "bound_ms": bytes_[k] / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms(bytes_[k]),
             "bound_by": "bytes",
             "library_ms": float(np.median(lm)) if lm is not None else None,
             "parity": "exact", "cases": par.cases[k]})
@@ -1492,6 +1513,7 @@ def lm_phase(dev, card: str, par: Parity) -> dict:
 
     translate = table.translate_batch
     held = {"translations": 0, "keys": 0}
+    k1_case = {}
 
     def checked_translate(seqs, lps):
         m0 = acc["mirror"]
@@ -1503,6 +1525,9 @@ def lm_phase(dev, card: str, par: Parity) -> dict:
         got = out.cpu().numpy()
         keys = (seqs.astype(np.uint64) << np.uint64(20)) \
             | lps.astype(np.uint64)
+        if eng.steps == LM_K1_STEP:   # K1's own inputs, timed after the run
+            k1_case.update(arrs=table._arrs, keys=keys, h=max(
+                table._mirror.max_inner_height, 3))
         exp = [table.index.lookup(int(k)) for k in keys]
         exp = np.array([-1 if e is None else e for e in exp], np.int64)
         if not np.array_equal(got, exp):
@@ -1605,8 +1630,45 @@ def lm_phase(dev, card: str, par: Parity) -> dict:
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"{k} was not launched on the LM path")
+    out["k1"] = lm_k1_timing(k1_case, par, dev, card, launches["fused_lookup"])
     out["profile"] = lm_profile(eng, card)
     del eng, model
+    return out
+
+
+def lm_k1_timing(case: dict, par: Parity, dev, card: str,
+                 launches: int) -> dict:
+    """K1 on the LM path's own page-table mirror and translation batch of
+    step LM_K1_STEP (slots x max_pages_per_seq keys, no overlay): held to
+    its plain version, then timed like the index path's K1."""
+    import torch
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.kernels.fused_lookup.ops import (fused_lookup, k1_bytes,
+                                                      k1_walks, lookup_plain)
+    if not case:
+        raise AssertionError(f"lm: no translation at step {LM_K1_STEP}")
+    arrs, h = case["arrs"], case["h"]
+    q = keys_to_tensor(case["keys"], dev)
+    Q = q.shape[0]
+    got = fused_lookup(arrs, None, q, h)
+    par.hold("fused_lookup", got, lookup_plain(arrs, None, q, h))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    km = time_cuda(lambda: fused_lookup(arrs, None, q, h), 50, flush)
+    pm = time_cuda(lambda: lookup_plain(arrs, None, q, h), 10, flush,
+                   PLAIN_HOLD_CYCLES)
+    rows = int(torch.unique(got[2]).numel())
+    C = arrs["leaf_keys"].shape[1]
+    walks = k1_walks(arrs, q)
+    out = {"Q": Q, "step": LM_K1_STEP, "height": h, "leaf_rows": rows,
+           "walks": walks,
+           "leaf_pool": list(arrs["leaf_keys"].shape),
+           "found": int(got[1].sum()),
+           "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+           "plain_ms": float(np.median(pm)),
+           "bound_ms": bound_ms(k1_bytes(Q, walks, rows, C, False)),
+           "bound_by": "bytes", "library_ms": None, "launches": launches}
+    log(f"k1 parity lm path (page-table mirror, Q={Q}, step {LM_K1_STEP}): "
+        f"exact; timed on {card}: " + json.dumps(out))
     return out
 
 
@@ -1730,7 +1792,7 @@ def _k6_shape(dev, par: Parity, B: int, NP: int, pool: int, lo: int,
         out[name] = {"ms": float(np.median(km)), "mean_ms": float(km.mean()),
                      "plain_ms": float(np.median(pm)),
                      "library_ms": float(np.median(lm)),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_ms": bound_ms(nbytes),
                      "bytes": nbytes, "sdpa_max_abs_diff": lib_err}
         del q, kp, vp, kc, vc
     return out
@@ -1776,7 +1838,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
-    build_kernels()
+    ptxas = build_kernels()
     par = Parity()
     k1_parity(par, dev)
     k34_edge_parity(par, dev)
@@ -1791,6 +1853,7 @@ def main() -> int:
     compaction_phase(dev)
     sharded_maintenance(dev)
     kernels = measure(mp, par, dev)
+    kernels[0]["ptxas"] = ptxas
     kernels += staged_phase(mp, par, dev, card)
     s, keys = mp["summary"], mp["keys"]
     del mp                  # free the monolithic index and its tensors
@@ -1814,6 +1877,7 @@ def main() -> int:
         "cases": par.cases["overlay_merge_stacked"], "parity": "exact"}
     lm_parity(dev)
     lm = lm_phase(dev, card, par)
+    kernels[0]["lm"] = lm.pop("k1")
     torch.cuda.empty_cache()
     kernels.append(k6_timing(dev, card, par,
                              lm["launches"]["paged_attention"]))

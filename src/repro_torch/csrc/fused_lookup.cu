@@ -13,41 +13,84 @@
 // 170-219): sid = count(bounds < q) over the S-1 inclusive upper bounds,
 // each shard's root, last row and last-leaf-min read at sid, and every
 // pool index sid * pool_len + clamp(local, 0, pool_len - 1), the
-// reference's per-shard mode="clip".  Here the route is a warp count
-// (lane l compares bounds l, l+32, ...; __reduce_add_sync sums), and every
-// clamped index adds shard sid's start in its pool (two offsets kept, for
-// the slot and node pools, so the kernel stays at 32 registers).  A
-// monolithic mirror is the S = 1 stack with no bounds: the count loop runs
-// zero times and reads nothing.
+// reference's per-shard mode="clip".  The route is a warp count (lane l
+// compares bounds l, l+32, ...; __reduce_add_sync sums), and every clamped
+// index adds shard sid's start in its pool (two offsets kept, for the slot
+// and node pools, not a pointer a pool).  A monolithic mirror is the S = 1
+// stack with no bounds: the count loop runs zero times and reads nothing.
 //
-// What bounds it on the H100: bytes and, at real sizes, latency.  Each
-// query must read one leaf row (256 keys = 2 KB at the default geometry)
-// plus a few dozen scattered bytes per inner level, and those reads form a
-// dependent chain (node -> slot -> successor -> row).  The TPU kernel keeps
-// every pool resident in VMEM; here the leaf pool (3.2 GB at 200M keys)
-// stays in HBM and the inner pools fall to L2 when they fit.
+// What bounds it on the H100.  One warp a query; up to 8,448 queries (64
+// warps on each of 132 SMs) the launch is a single wave, so its time is
+// the length of each query's chain of dependent loads, an L2 or HBM round
+// trip a link (the TPU kernel keeps every pool resident in VMEM; here the
+// leaf pool, 3.2 GB at 200M keys, stays in HBM), and then the leaf stage's
+// bytes: one 2 KB row a query at the default geometry, 16 MB at the served
+// 8192 queries, nearly all of the bytes bound, which random rows read at
+// about half of HBM's rate.  The design shortens the chain three ways:
 //
-// Design: one warp per query, no shared memory.  The scalar traversal runs
-// redundantly on all 32 lanes (equal addresses: one transaction per warp),
-// so the query never leaves registers.  Row searches are warp-cooperative:
-// lane l reads keys l, l+32, ... (coalesced 256-byte segments), counts
-// key < q, and __reduce_add_sync sums the counts: the TPU kernel's
-// whole-row compare-and-reduce.  The overlay probe is a lower-bound binary
-// search over the sorted pack (padding sorts last, so it equals the TPU
-// kernel's count(ok < q)).  The slot prediction rounds exactly like the
-// reference: __dmul_rn/__dadd_rn keep nvcc from contracting into an FMA.
+// 1. The overlay probe is a warp-cooperative 33-way lower bound
+//    (warp_lower_bound): each round lane l loads the splitter that closes
+//    the l-th of 33 equal parts of the window, __ballot_sync marks those
+//    below q (a prefix: the pack is sorted, padding last) and __popc picks
+//    the part.  n candidates become floor(n / 33), so a pack of 2^24 slots
+//    takes 5 dependent rounds where a binary search took 24-25.  It
+//    returns exactly count(ok < q), the TPU kernel's compare-and-sum.
+// 2. One round trip for each visited slot: the stale walk loads a slot's
+//    key, successor, tag and pointer together at one clamped index and
+//    leaves as soon as the slot is not stale (the walk is idempotent from
+//    there), so a level costs three dependent trips (node fields, next_occ,
+//    slot record) where it cost four.  The record's (and a node's, and an
+//    overlay hit's) loads are asm volatile (ld_*): as plain loads, nvcc
+//    sank the tag and pointer below the walk's exit, a second trip.
+// 3. Rows are staged into shared memory with cp.async (staged_rank): each
+//    warp copies its leaf row (and a PA/BT row on the way) into its own
+//    slice of dynamic shared memory in one batch of asynchronous copies,
+//    16 bytes at a time where the pool's rows are 16-byte aligned (an even
+//    cap), 8 otherwise, then waits once: one round trip for the whole row,
+//    and no registers hold the loads in flight, so the leaf row's copies
+//    are issued before the overlay probe and waited for after it: the
+//    row's trip overlaps the probe's rounds.  The rank and the found check
+//    read shared memory; only the payload word comes from global memory.
+//    Inner rows longer than a slice go through it in slice-sized chunks.
+//    ops._stage_plan sizes the slices (a leaf row each, 8 warps a block:
+//    16 KB at the default geometry, 8 blocks an SM) and picks the widths.
+//    Staging speeds up no served shape (PERF.md §6): its shared memory
+//    takes L1 from the overlay probe, whose live keys (225 KB at the
+//    served pack) an SM's L1 holds without it, so with the pack it is
+//    2.5-4.5% slower than ranking the row from global memory; the unstaged
+//    kernel given the same idle shared memory is as slow, and a carveout
+//    hint changes nothing.  At the LM shape (every query on one row) it
+//    costs 0.1-0.3 us, not through L1's size (the unstaged kernel with the
+//    idle shared memory is as fast); that cp.async.cg skips L1, where
+//    plain loads share the row, is the likely cause, not measured.
+//
+// At most 32 registers a thread (__launch_bounds__(256, 8)), no spills:
+// fewer resident warps lengthen the served batch past one wave.  Tried and
+// dropped (PERF.md §6): the staging loops unrolled (52 bytes of spills);
+// the same without the 32-register cap (48 registers, 5 blocks an SM);
+// the overlay's first round issued before the traversal (16 bytes of
+// spills); each was slower at 8192 queries.  The leaf row's wait moved
+// after the overlay probe changed nothing at 8192 (the leaf stage's bytes
+// bound it there) and took 2% off at 256 with the pack; it stays.  Not
+// taken: several queries a warp (the batch already fits one wave, and it
+// shortens no chain); L2 persistence of the inner pools (K2 rewrites the
+// pack between launches, an engine-level change).  The scalar traversal
+// runs redundantly on all 32 lanes (equal addresses: one transaction a
+// warp), so the query never leaves registers.  The slot prediction rounds
+// exactly like the reference: __dmul_rn/__dadd_rn keep nvcc from
+// contracting into an FMA.
 // Keys arrive biased (u64 ^ 2^63 as int64, so signed order is key order);
-// only the f64 prediction un-biases them.  Making it fast (staging rows in
-// shared memory, several queries per warp, L2 persistence of the inner
-// pools) is later work.
+// only the f64 prediction un-biases them.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int TAG_DATA = 1, TAG_PA = 2, TAG_BT = 3, TAG_MIXED = 4;
-constexpr int WARPS_PER_BLOCK = 8;
+constexpr int MAX_WARPS = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// bits of Mirror::wide: that pool's rows are copied 16 bytes at a time
+constexpr int WIDE_LEAF = 1, WIDE_PA = 2, WIDE_BT = 4;
 
 struct Mirror {
   const int32_t* slot_tag;
@@ -73,43 +116,142 @@ struct Mirror {
   // per-shard pool lengths: shard s's pools start at s * length
   int n_slots, n_nodes, n_pa, pa_cap, n_bt, bt_cap, n_leaf, leaf_cap;
   int n_shards, ov_cap, height, stale_steps;
+  int slice_keys;                // keys of a warp's shared slice (even)
+  int wide;                      // WIDE_* bits
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// count of row[0..n) < q, summed over the warp
-__device__ __forceinline__ int warp_rank(const int64_t* row, int n,
-                                         int64_t q, int lane) {
+// global loads nvcc may not move (asm volatile, through the read-only
+// path): a record's fields issue back to back, one round trip, and none is
+// sunk below a loop's exit, as nvcc does to a plain load whose value is
+// used only after the loop (it split the slot record into two trips)
+__device__ __forceinline__ int ld_i32(const int32_t* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int64_t ld_i64(const int64_t* p) {
+  int64_t v;
+  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ double ld_f64(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(int64_t* dst, const int64_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(int64_t* dst, const int64_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// one batch of cp.async copies of row[0..len) into the warp's shared slice
+// (len <= the slice's keys); `wide`: the row starts 16-byte aligned and len
+// is even, so every copy moves 16 bytes.  The loops stay rolled: unrolled,
+// they pushed the kernel past 32 registers into spills (ptxas -v).
+__device__ __forceinline__ void stage_copy(int64_t* slice, const int64_t* row,
+                                           int len, bool wide, int lane) {
+  __syncwarp();  // every lane is done with the slice's last contents
+  if (wide) {
+#pragma unroll 1
+    for (int j = 2 * lane; j < len; j += 64) cp_async16(slice + j, row + j);
+  } else {
+#pragma unroll 1
+    for (int j = lane; j < len; j += 32) cp_async8(slice + j, row + j);
+  }
+}
+
+// wait for the warp's copies, then this lane's share of count(slice[0..len)
+// < q), two keys a 16-byte read; slice[len] past an odd len lies inside the
+// slice (its keys are even) and is not counted
+__device__ __forceinline__ int stage_count(const int64_t* slice, int len,
+                                           int64_t q, int lane) {
+  cp_async_wait_all();
+  __syncwarp();  // every lane's copies are visible to the warp
   int c = 0;
-  for (int j = lane; j < n; j += 32) c += row[j] < q;
+#pragma unroll 1
+  for (int j = 2 * lane; j < len; j += 64) {
+    const longlong2 v = *reinterpret_cast<const longlong2*>(slice + j);
+    c += (v.x < q) + (j + 1 < len && v.y < q);
+  }
+  return c;
+}
+
+// count of row[0..n) < q, summed over the warp: the row goes through the
+// slice in chunks of `chunk` keys, a batch of copies and one wait a chunk
+__device__ __forceinline__ int staged_rank(int64_t* slice, const int64_t* row,
+                                           int n, int chunk, bool wide,
+                                           int64_t q, int lane) {
+  int c = 0;
+  for (int off = 0; off < n; off += chunk) {
+    const int len = min(chunk, n - off);
+    stage_copy(slice, row + off, len, wide, lane);
+    c += stage_count(slice, len, q, lane);
+  }
   return __reduce_add_sync(FULL_MASK, c);
+}
+
+// count(ok[0..cap) < q) over a sorted pack (padding sorts last) by a 33-way
+// lower bound: the count lies in [lo, lo + n]; lane l reads the splitter
+// closing the l-th of 33 parts of `step` candidates, the ballot of those
+// below q is a prefix of c lanes, and the count lies in part c.  n becomes
+// floor(n / 33): floor(log33(cap)) + 1 dependent rounds.
+__device__ __forceinline__ int warp_lower_bound(const int64_t* ok, int cap,
+                                                int64_t q, int lane) {
+  int lo = 0, n = cap;
+  while (n > 0) {
+    const int step = n / 33 + 1;
+    const int j = (lane + 1) * step - 1;
+    const bool below = j < n && ok[lo + j] < q;
+    const int c = __popc(__ballot_sync(FULL_MASK, below));
+    lo += c * step;
+    n = min(step - 1, n - c * step);
+  }
+  return lo;
 }
 
 // at most 32 registers a thread, so 8 blocks (64 warps) fit an SM: the
 // dependent-load chain is latency-bound and wants every warp it can get
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32, 8)
+__global__ void __launch_bounds__(MAX_WARPS * 32, 8)
 fused_lookup_kernel(Mirror m, const int64_t* __restrict__ queries, int nq,
                     int64_t* __restrict__ out_pay,
                     bool* __restrict__ out_found,
                     int32_t* __restrict__ out_leaf,
                     int32_t* __restrict__ out_sid) {
-  const int qi = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  extern __shared__ __align__(16) int64_t smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (blockDim.x >> 5) + warp;
   if (qi >= nq) return;  // warp-uniform
   const int64_t q = queries[qi];
-  const double qf =
-      __ull2double_rn(static_cast<uint64_t>(q) ^ 0x8000000000000000ull);
 
   // route: sid = count(bounds < q); at most S - 1, so always a real slot
   int below = 0;
   for (int j = lane; j < m.n_shards - 1; j += 32) below += m.bounds[j] < q;
   const int sid = __reduce_add_sync(FULL_MASK, below);
-  // shard sid's pools start at these offsets (two registers, not one
-  // pointer a pool: the base pointers stay in the parameter bank)
-  const size_t sh = static_cast<size_t>(sid);
-  const size_t so = sh * m.n_slots, no = sh * m.n_nodes;
+  // shard sid's slot and node pools start at these offsets (one register
+  // each, not a pointer a pool: the base pointers stay in the parameter
+  // bank; the wrapper checks S * pool length < 2^31)
+  const int so = sid * m.n_slots, no = sid * m.n_nodes;
   const int root = m.meta[2 * sid];
   const int last_row = m.meta[2 * sid + 1];
 
@@ -117,24 +259,34 @@ fused_lookup_kernel(Mirror m, const int64_t* __restrict__ queries, int nq,
   int leaf = done ? last_row : -1;
   int node = max(root, 0);
   for (int level = 0; level < m.height && !done; ++level) {
-    const size_t nd = no + clampi(node, 0, m.n_nodes - 1);
-    const int fanout = m.node_fanout[nd];
-    const double x =
-        floor(__dadd_rn(__dmul_rn(m.node_slope[nd], qf),
-                        m.node_intercept[nd])) - 1.0;
+    // the node's fields, one round trip
+    const int nd = no + clampi(node, 0, m.n_nodes - 1);
+    const double slope = ld_f64(m.node_slope + nd);
+    const double icpt = ld_f64(m.node_intercept + nd);
+    const int fanout = ld_i32(m.node_fanout + nd);
+    const int base = ld_i32(m.node_base + nd);
+    const int overflow = ld_i32(m.node_overflow + nd);
+    // the exact f64 key, made again each level rather than held
+    const double qf =
+        __ull2double_rn(static_cast<uint64_t>(q) ^ 0x8000000000000000ull);
+    const double x = floor(__dadd_rn(__dmul_rn(slope, qf), icpt)) - 1.0;
     const int pred = static_cast<int>(
         fmin(fmax(x, 0.0), static_cast<double>(fanout - 1)));
-    int s = m.next_occ[so + clampi(m.node_base[nd] + pred, 0,
-                                   m.n_slots - 1)];
-    if (s < 0) s = m.node_overflow[nd];
-    for (int k = 0; k < m.stale_steps; ++k) {
-      const size_t sc = so + clampi(s, 0, m.n_slots - 1);
-      if (s >= 0 && m.slot_key[sc] < q) s = m.succ_slot[sc];
+    int s = m.next_occ[so + clampi(base + pred, 0, m.n_slots - 1)];
+    if (s < 0) s = overflow;
+    // the stale walk, a slot record (key, successor, tag, pointer) a
+    // round trip; the record of the slot the walk stops at is the one read
+    int tag, ptr;
+    for (int k = 0;; ++k) {
+      const int sc = so + clampi(s, 0, m.n_slots - 1);
+      const int64_t key = ld_i64(m.slot_key + sc);
+      const int succ = ld_i32(m.succ_slot + sc);
+      tag = ld_i32(m.slot_tag + sc);
+      ptr = ld_i32(m.slot_ptr + sc);
+      if (k == m.stale_steps || s < 0 || key >= q) break;
+      s = succ;
     }
     const bool ended = s < 0;
-    const size_t sc = so + clampi(s, 0, m.n_slots - 1);
-    const int tag = m.slot_tag[sc];
-    const int ptr = m.slot_ptr[sc];
     if (!ended && tag == TAG_MIXED) {  // descend
       node = ptr;
       continue;
@@ -147,10 +299,11 @@ fused_lookup_kernel(Mirror m, const int64_t* __restrict__ queries, int nq,
       const bool pa = tag == TAG_PA;
       const int cap = pa ? m.pa_cap : m.bt_cap;
       const int rows = pa ? m.n_pa : m.n_bt;
-      const size_t row =
-          (sh * rows + clampi(max(ptr, 0), 0, rows - 1)) * cap;
-      const int pos = warp_rank((pa ? m.pa_keys : m.bt_keys) + row, cap,
-                                q, lane);
+      const size_t row = (static_cast<size_t>(sid) * rows +
+                          clampi(max(ptr, 0), 0, rows - 1)) * cap;
+      const int pos = staged_rank(
+          smem + warp * m.slice_keys, (pa ? m.pa_keys : m.bt_keys) + row,
+          cap, m.slice_keys, m.wide & (pa ? WIDE_PA : WIDE_BT), q, lane);
       leaf = (pa ? m.pa_ptrs : m.bt_ptrs)[row + pos % cap];
     } else {
       leaf = -1;
@@ -159,28 +312,34 @@ fused_lookup_kernel(Mirror m, const int64_t* __restrict__ queries, int nq,
   }
 
   leaf = max(leaf, 0);
-  const size_t row =
-      (sh * m.n_leaf + static_cast<size_t>(clampi(leaf, 0, m.n_leaf - 1))) *
-      m.leaf_cap;
-  const int pos = warp_rank(m.leaf_keys + row, m.leaf_cap, q, lane);
-  const int posm = pos % m.leaf_cap;
-  bool found = pos < m.leaf_cap && m.leaf_keys[row + posm] == q;
-  int64_t pay = found ? m.leaf_pay[row + posm] : 0;
-
+  const size_t row = (static_cast<size_t>(sid) * m.n_leaf +
+                      clampi(leaf, 0, m.n_leaf - 1)) * m.leaf_cap;
+  // the slice holds a whole leaf row (slice_keys >= leaf_cap): one batch,
+  // in flight through the overlay probe (cp.async holds no registers)
+  int64_t* const slice = smem + warp * m.slice_keys;
+  stage_copy(slice, m.leaf_keys + row, m.leaf_cap, m.wide & WIDE_LEAF, lane);
+  int lo = 0;
+  int64_t okp = 0, opay = 0, otomb = 0;
   if (m.ov != nullptr) {
-    const int64_t* ok = m.ov;
-    int lo = 0, hi = m.ov_cap;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ok[mid] < q) lo = mid + 1; else hi = mid;
-    }
+    lo = warp_lower_bound(m.ov, m.ov_cap, q, lane);
+    // the hit's record, in flight through the row's rank
     const int pc = min(lo, m.ov_cap - 1);
-    const bool hit = lo < m.ov_cap && ok[pc] == q;
-    const bool tomb = hit && m.ov[2 * static_cast<size_t>(m.ov_cap) + pc] != 0;
-    if (hit && !tomb) pay = m.ov[static_cast<size_t>(m.ov_cap) + pc];
-    if (hit) found = !tomb;
-    if (!found) pay = 0;
+    okp = ld_i64(m.ov + pc);
+    opay = ld_i64(m.ov + static_cast<size_t>(m.ov_cap) + pc);
+    otomb = ld_i64(m.ov + 2 * static_cast<size_t>(m.ov_cap) + pc);
   }
+  const int pos = __reduce_add_sync(
+      FULL_MASK, stage_count(slice, m.leaf_cap, q, lane));
+  const int posm = pos % m.leaf_cap;
+  bool found = pos < m.leaf_cap && slice[posm] == q;
+  int64_t pay = m.leaf_pay[row + posm];
+  if (m.ov != nullptr) {
+    const bool hit = lo < m.ov_cap && okp == q;
+    const bool tomb = hit && otomb != 0;
+    if (hit && !tomb) pay = opay;
+    if (hit) found = !tomb;
+  }
+  if (!found) pay = 0;
   if (lane == 0) {
     out_pay[qi] = pay;
     out_found[qi] = found;
@@ -204,7 +363,8 @@ extern "C" int fused_lookup_launch(
     const void* ov, int ov_cap,
     const void* queries, int nq,
     void* out_pay, void* out_found, void* out_leaf, void* out_sid,
-    int height, int stale_steps, void* stream) {
+    int height, int stale_steps, int warps, int smem_bytes, int slice_keys,
+    int wide, void* stream) {
   Mirror m;
   m.slot_tag = static_cast<const int32_t*>(slot_tag);
   m.slot_key = static_cast<const int64_t*>(slot_key);
@@ -238,9 +398,20 @@ extern "C" int fused_lookup_launch(
   m.ov_cap = ov_cap;
   m.height = height;
   m.stale_steps = stale_steps;
+  m.slice_keys = slice_keys;
+  m.wide = wide;
+  if (warps < 1 || warps > MAX_WARPS || slice_keys < leaf_cap ||
+      smem_bytes < warps * slice_keys * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq > 0) {
-    const int blocks = (nq + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-    fused_lookup_kernel<<<blocks, WARPS_PER_BLOCK * 32, 0,
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem_bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int blocks = (nq + warps - 1) / warps;
+    fused_lookup_kernel<<<blocks, warps * 32, smem_bytes,
                           static_cast<cudaStream_t>(stream)>>>(
         m, static_cast<const int64_t*>(queries), nq,
         static_cast<int64_t*>(out_pay), static_cast<bool*>(out_found),

@@ -25,7 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, spills) of each library built by this process
+# ptxas report (registers, spills) of each library built or loaded here;
+# kept beside the library as ``lib<name>-<tag>.log``
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -51,6 +52,9 @@ def _start(name: str):
     """Start one nvcc build (None when the library is already built)."""
     out = _target(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            BUILD_LOG[name] = log.read_text()
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -68,6 +72,7 @@ def _finish(name: str, job) -> None:
     BUILD_LOG[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 

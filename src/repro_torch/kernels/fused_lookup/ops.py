@@ -10,6 +10,9 @@ stacked ``(S, ...)`` shard mirror (``core.lookup.stacked_device_arrays``),
 the TPU kernel's ``cfg.sharded`` branch; the monolithic mirror is the
 one-shard stack.  Those dicts ARE the kernel's operand layout
 (:data:`POOL_DTYPES`), so there is no operand packing and no operand cache.
+The kernel stages rows through shared memory; :func:`_stage_plan` sizes
+it from the pools' shapes and raises where a leaf row cannot fit.
+:func:`k1_bytes` is the bytes a launch must move, for its bound.
 
 Dispatch is by the query tensor's device: a CPU tensor runs the plain
 version (the twin of ``core/lookup.py:76-151, 391-423, 563-660`` of the
@@ -19,6 +22,7 @@ back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +52,19 @@ KEY_FIELDS = ("slot_key", "pa_keys", "bt_keys", "leaf_keys")
 # pools the kernel reads (leaf_count / leaf_next serve scans only)
 _KERNEL_POOLS = [f for f in POOL_DTYPES if f not in ("leaf_count",
                                                       "leaf_next")]
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak (NVIDIA data sheet)
+STAGE_WARPS = 8             # warps a block: the kernel's __launch_bounds__
+SMEM_BLOCK_MAX = 232_448    # dynamic shared memory one H100 block may use
+# bits of the plan's ``wide``: that pool's rows copy 16 bytes at a time
+WIDE_LEAF, WIDE_PA, WIDE_BT = 1, 2, 4
+
+
+class StagePlan(NamedTuple):
+    """How K1 stages rows through shared memory (``_stage_plan``)."""
+    warps: int        # warps (queries) a block
+    smem_bytes: int   # dynamic shared memory a block: a slice a warp
+    slice_keys: int   # keys of a slice: a leaf row, rounded up to even
+    wide: int         # WIDE_* bits of the pools copied 16 bytes at a time
 
 
 # ------------------------------------------------------------ plain version
@@ -183,6 +200,64 @@ def lookup_plain(arrs: dict, ovr: dict | None, q: torch.Tensor,
 
 
 # ------------------------------------------------------------------ wrapper
+def _stage_plan(leaf_cap: int, pa_cap: int, bt_cap: int,
+                aligned: tuple = (True, True, True)) -> StagePlan:
+    """K1's shared-memory plan from the pools' row caps: each warp gets a
+    slice of one leaf row (rounded up to an even count of keys, so slices
+    stay 16-byte aligned), PA/BT rows pass through it in slice-sized
+    chunks, and a block takes STAGE_WARPS warps, fewer where their slices
+    would pass SMEM_BLOCK_MAX.  A pool's rows are copied 16 bytes at a
+    time when its cap is even and its base (``aligned``: leaf, PA, BT) is
+    16-byte aligned, 8 bytes otherwise.  Raises ``ValueError`` where not
+    even one slice fits a block."""
+    if min(leaf_cap, pa_cap, bt_cap) < 1:
+        raise ValueError(f"empty K1 row caps leaf={leaf_cap} pa={pa_cap} "
+                         f"bt={bt_cap}")
+    slice_keys = leaf_cap + leaf_cap % 2
+    warps = min(STAGE_WARPS, SMEM_BLOCK_MAX // (slice_keys * 8))
+    if warps < 1:
+        raise ValueError(f"K1 stages a leaf row in shared memory: a cap of "
+                         f"{leaf_cap} keys ({slice_keys * 8} bytes) passes "
+                         f"the {SMEM_BLOCK_MAX} bytes a block may use")
+    wide = sum(bit for bit, cap, ok in zip((WIDE_LEAF, WIDE_PA, WIDE_BT),
+                                           (leaf_cap, pa_cap, bt_cap),
+                                           aligned) if cap % 2 == 0 and ok)
+    return StagePlan(warps, warps * slice_keys * 8, slice_keys, wide)
+
+
+_ROW_POOLS = ("leaf_keys", "pa_keys", "bt_keys")
+
+
+def _launch_plan(stk: dict) -> StagePlan:
+    """The plan a launch over the stacked pools ``stk`` uses: their row
+    caps and whether each pool's base is 16-byte aligned."""
+    return _stage_plan(*(stk[f].shape[2] for f in _ROW_POOLS),
+                       tuple(stk[f].data_ptr() % 16 == 0 for f in _ROW_POOLS))
+
+
+def k1_walks(arrs: dict, q: torch.Tensor) -> int:
+    """Queries of ``q`` that enter the inner tree of their shard: a root is
+    present and the key lies below the shard's last-leaf minimum.  The
+    others read no node and no slot (the kernel's ``done`` at the route).
+    ``arrs`` is a stacked mirror or a monolithic one."""
+    stk = arrs if "bounds" in arrs else _as_stack(arrs)
+    sid = (stk["bounds"][None, :] < q[:, None]).sum(1)
+    walk = (q < stk["last_leaf_min"][sid]) & (stk["meta"][sid, 0] >= 0)
+    return int(walk.sum())
+
+
+def k1_bytes(Q: int, walks: int, rows: int, cap: int, overlay: bool,
+             sharded: bool = False, n_bounds: int = 0) -> int:
+    """Bytes a K1 launch must move on its data: queries in; payload, found,
+    leaf row (and shard id) out; each of the ``rows`` distinct leaf rows'
+    ``cap`` keys once and a payload word a query; one slot record
+    (next_occ, key, tag, pointer: 20 bytes) for each of the ``walks``
+    queries that enter the inner tree (:func:`k1_walks`); with an overlay,
+    one overlay key a query; the boundary table."""
+    return Q * (8 + (17 if sharded else 13) + 8 + (8 if overlay else 0)) \
+        + walks * 20 + rows * cap * 8 + n_bounds * 8
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fused_lookup_launch
     fn.argtypes = ([ctypes.c_void_p] * len(_KERNEL_POOLS)
@@ -193,6 +268,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p,                  # pay, found, leaf, sid
                       ctypes.c_int, ctypes.c_int,       # height, stale
+                      ctypes.c_int, ctypes.c_int,       # plan: warps, bytes
+                      ctypes.c_int, ctypes.c_int,       # slice keys, wide
                       ctypes.c_void_p])                 # stream
     fn.restype = ctypes.c_int
 
@@ -221,6 +298,10 @@ def _check_operands(stk: dict, ovr: dict | None, q: torch.Tensor) -> None:
             or stk["bounds"].shape != (S - 1,):
         raise ValueError("meta must be (S, 2) (root, last row), "
                          "last_leaf_min (S,), bounds (S-1,)")
+    for f in ("slot_tag", "node_base"):
+        if stk[f].numel() >= 2**31:
+            raise ValueError(f"K1 indexes the {f!r} pool in 32 bits: "
+                             f"{stk[f].numel()} entries over all shards")
     if ovr is not None:
         p = ovr["ov_pack"]
         if p.device != dev or p.dtype != torch.int64 or p.dim() != 2 \
@@ -249,6 +330,7 @@ def _launch(stk: dict, ovr: dict | None, q: torch.Tensor, height: int,
     S = stk["meta"].shape[0]
     bounds = stk["bounds"]
     ov = ovr["ov_pack"] if ovr is not None else None
+    plan = _launch_plan(stk)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fused_lookup_launch(
         *[stk[f].data_ptr() for f in _KERNEL_POOLS], *sizes,
@@ -257,7 +339,7 @@ def _launch(stk: dict, ovr: dict | None, q: torch.Tensor, height: int,
         ov.shape[1] if ov is not None else 0,
         q.data_ptr(), Q, pay.data_ptr(), found.data_ptr(), leaf.data_ptr(),
         sid.data_ptr() if with_sid else None,
-        int(height), STALE_STEPS, stream)
+        int(height), STALE_STEPS, *plan, stream)
     _build.check(err, "fused_lookup")
     return out, True
 

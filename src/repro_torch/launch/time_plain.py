@@ -1,16 +1,34 @@
-"""Time K1's plain version (``lookup_plain``, the monolithic one-shard read
-that every ``device="cpu"`` engine runs) from several source trees of the
-port, interleaved in one process on one mirror, so that two versions are
-compared on one host:
+"""Time K1 from several source trees of the port, interleaved in one process
+on one card, so that two versions are compared on one host: each tree's
+kernel over a sweep of batch sizes, and its plain version (``lookup_plain``,
+the read of every ``device="cpu"`` engine):
 
-    python -m repro_torch.launch.time_plain --keys 20000000 --device cuda \\
-        --tree before=/path/to/other/checkout/src --tree after=src
+    python -m repro_torch.launch.time_plain --keys 200000000 \\
+        --tree before=smoke_tree/old/src --tree after=src \\
+        --queries 256,1024,8192,65536 --shards 8 --lm
 
-Each ``--tree NAME=SRC`` loads ``SRC/repro_torch`` as a package of its own
-(the mirror is built by the running package and shared).  Per tree and
-overlay case it prints, as JSON, the median wall time of a call (host and
-device, synchronized), on the card also its device time with the stream
-held until the call is enqueued, and the aten operations one call runs.
+Each ``--tree NAME=SRC`` loads ``SRC/repro_torch`` as a package of its own,
+which builds its kernels into its own ``_build/``; the mirrors are built by
+the running package and shared.  Every tree's outputs must equal the
+first tree's, and its kernel's its plain version's.  It prints one JSON
+row a measurement, in two rounds (the second in reverse tree order):
+
+- ``kernel``: each tree's ``fused_lookup`` over the ``--keys`` covid mirror
+  (and with ``--shards S`` its ``fused_lookup_sharded`` over the same keys
+  in S range shards), without and with an overlay pack of the served
+  shape (2^24 slots, 28,160 live), at each ``--queries`` batch size: the
+  median device time of a launch, L2 flushed and the stream held, beside
+  its bytes bound (``fused_lookup.ops.k1_bytes``, a slot record only for
+  the queries that enter the inner tree).  A time flat in Q is the
+  dependent chain; one that grows with Q, the bytes;
+- ``lm`` (with ``--lm``): the kernel on an LM page table's mirror (8
+  sequences of 3-17 pages in a ``LearnedPageTable``), Q = 256 = 8 slots x
+  32 pages, no overlay: the LM serving step's translation;
+- ``plain``: the plain version at Q = 8192, its median wall time (host and
+  device, synchronized), on the card also its device time with the stream
+  held until the call is enqueued, and the aten operations one call runs.
+
+On the CPU (``--device cpu``) only the ``plain`` rows are printed.
 """
 from __future__ import annotations
 
@@ -25,9 +43,14 @@ import time
 import numpy as np
 import torch
 
-HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clocks
+from ..kernels.fused_lookup.ops import HBM_BYTES_PER_S, k1_bytes, k1_walks
+
+HOLD_CYCLES = 100_000_000   # about 50 ms of spinning: a plain call's enqueue
+KERNEL_HOLD_CYCLES = 2_000_000  # about 1 ms: one launch's enqueue
 QUERIES = 8192              # the serving step's get batch
 ROUNDS = 2                  # the second in reverse tree order
+OV_CAP, OV_LIVE = 1 << 24, 28_160   # the served overlay pack (PERF.md §6)
+LM_SLOTS, LM_PAGES = 8, 32  # the LM engine's slots and pages a sequence
 
 
 def _load_tree(name: str, src: str):
@@ -53,17 +76,23 @@ def _wall_ms(fn, reps: int, cuda: bool) -> float:
     return float(np.median(ts)) * 1e3
 
 
-def _device_ms(fn, reps: int) -> float:
+def _device_ms(fn, reps: int, hold: int = HOLD_CYCLES, flush=None) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each after a write
+    of ``flush`` (evicting L2) and a stream hold of ``hold`` cycles, so the
+    events time the device's work, not the host's enqueue."""
+    fn()
     evs = []
     for _ in range(reps):
-        torch.cuda._sleep(HOLD_CYCLES)
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(hold)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
         evs.append((a, b))
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
 
 
@@ -75,19 +104,103 @@ def _aten_ops(fn) -> int:
                if e.key.startswith("aten::"))
 
 
+def _agree(outs: dict, exp, what: str) -> None:
+    """Every tree's outputs equal ``exp`` (the first tree's plain ones)."""
+    for name, got in outs.items():
+        if not all(torch.equal(a, b) for a, b in zip(got, exp)):
+            raise AssertionError(f"{what}: tree {name} != the plain version")
+
+
+def _queries(rng, keys: np.ndarray, Q: int) -> np.ndarray:
+    n_abs = Q // 10
+    return np.concatenate([rng.choice(keys, Q - n_abs),
+                           rng.integers(int(keys[0]), int(keys[-1]), n_abs,
+                                        dtype=np.uint64)])
+
+
+def _served_pack(rng, keys: np.ndarray) -> np.ndarray:
+    """The served overlay pack's shape: OV_CAP slots, OV_LIVE live entries
+    (half the mirror's keys, 10% tombstones), padding last."""
+    pack = np.full((3, OV_CAP), np.iinfo(np.uint64).max, dtype=np.uint64)
+    pack[1:] = 0
+    fresh = rng.integers(int(keys[0]), int(keys[-1]), OV_LIVE,
+                         dtype=np.uint64)
+    live = np.unique(np.concatenate([rng.choice(keys, OV_LIVE // 2),
+                                     fresh]))[:OV_LIVE]
+    n = live.shape[0]
+    pack[0, :n], pack[1, :n] = live, live * np.uint64(3)
+    pack[2, :n] = rng.random(n) < 0.1
+    return pack
+
+
+def _lm_case(dev):
+    """An LM page table's mirror and one translation batch: 8 live
+    sequences of 3-17 pages (prompts of 32-256 tokens plus 16 new, pages of
+    16) allocated as the engine does, queried for 8 slots x 32 pages."""
+    from ..serving.kv_cache import LearnedPageTable, PagePool
+    rng = np.random.default_rng(0)
+    table = LearnedPageTable(PagePool(512), device=dev)
+    seqs = np.arange(9, 9 + LM_SLOTS)          # after a first batch
+    for s in seqs:
+        for lp in range(int(rng.integers(3, 18))):
+            table.alloc_page(int(s), lp)
+    keys = (np.repeat(seqs, LM_PAGES).astype(np.uint64) << np.uint64(20)) \
+        | np.tile(np.arange(LM_PAGES), LM_SLOTS).astype(np.uint64)
+    table.translate_batch(np.repeat(seqs, LM_PAGES),
+                          np.tile(np.arange(LM_PAGES), LM_SLOTS))
+    return table._arrs, keys, max(table._mirror.max_inner_height, 3)
+
+
+def _sweep(trees: dict, form: str, mirror: dict, cases: dict, qs: dict,
+           h: int, flush, r: int, reps: int, cap: int,
+           n_bounds: int = 0) -> None:
+    """One round of kernel rows: every tree's ``form`` on ``mirror`` for
+    each overlay case and batch, held to the first tree's plain version."""
+    sharded = form == "fused_lookup_sharded"
+    plain = "lookup_sharded_plain" if sharded else "lookup_plain"
+    first = next(iter(trees.values()))
+    order = list(trees) if r % 2 == 0 else list(trees)[::-1]
+    for case, ovr in cases.items():
+        for Q, qt in qs.items():
+            exp = getattr(first, plain)(mirror, ovr, qt, h)
+            outs = {n: getattr(trees[n], form)(mirror, ovr, qt, h)
+                    for n in order}
+            _agree(outs, exp, f"{form} Q={Q} {case}")
+            rows = int(torch.unique(exp[2]).numel())
+            walks = k1_walks(mirror, qt)
+            nbytes = k1_bytes(Q, walks, rows, cap, ovr is not None, sharded,
+                              n_bounds)
+            for name in order:
+                fn = getattr(trees[name], form)
+                ms = _device_ms(lambda: fn(mirror, ovr, qt, h), reps,
+                                KERNEL_HOLD_CYCLES, flush)
+                print(json.dumps({
+                    "row": "kernel", "round": r, "tree": name, "form": form,
+                    "case": case, "Q": Q, "device_ms": ms,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "leaf_rows": rows, "walks": walks}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=20_000_000)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--queries", default=str(QUERIES),
+                    help="comma-separated kernel batch sizes")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="also time the sharded form over S range shards")
+    ap.add_argument("--lm", action="store_true",
+                    help="also time the kernel on an LM page table's mirror")
     ap.add_argument("--tree", action="append", required=True,
-                    help="NAME=SRC: time SRC/repro_torch's lookup_plain")
+                    help="NAME=SRC: time SRC/repro_torch's K1")
     args = ap.parse_args(argv)
 
-    from ..core import Aulid, BlockDevice
-    from ..core.device_index import build_device_index
+    from ..core import Aulid, BlockDevice, partition_bulkload
+    from ..core.device_index import build_device_index, stack_device_indexes
     from ..core.keys import keys_to_tensor
-    from ..core.lookup import device_arrays, overlay_from_numpy
+    from ..core.lookup import (device_arrays, overlay_from_numpy,
+                               stacked_device_arrays)
     from ..core.workloads import make_dataset, payloads_for
     from ..device import resolve
 
@@ -103,41 +216,67 @@ def main(argv=None) -> int:
     di = build_device_index(idx)
     arrs = device_arrays(di, dev)
     h = max(di.max_inner_height, 3)
+    cap = di.leaf_keys.shape[1]
     rng = np.random.default_rng(7)
-    n_abs = QUERIES // 10
-    q = np.concatenate([rng.choice(keys, QUERIES - n_abs),
-                        rng.integers(int(keys[0]), int(keys[-1]), n_abs,
-                                     dtype=np.uint64)])
-    qt = keys_to_tensor(q, dev)
-    pack = np.full((3, 8192), np.iinfo(np.uint64).max, dtype=np.uint64)
-    ov = np.sort(rng.choice(keys, 4096, replace=False))
-    pack[0, :4096], pack[1, :4096], pack[2, :4096] = ov, ov * 3, ov % 2
-    cases = {"no overlay": None, "overlay": overlay_from_numpy(pack, dev)}
-    ref = None
-    for name, ops in trees.items():
-        got = [t.cpu() for t in ops.lookup_plain(arrs, cases["overlay"], qt,
-                                                 h)]
-        ref = ref or (name, got)
-        if not all(torch.equal(a, b) for a, b in zip(got, ref[1])):
-            raise AssertionError(f"tree {name} disagrees with {ref[0]}")
+    sizes = [int(x) for x in args.queries.split(",")]
+    qs = {Q: keys_to_tensor(_queries(rng, keys, Q), dev) for Q in sizes}
+    qt = keys_to_tensor(_queries(rng, keys, QUERIES), dev)
+    cases = {"no overlay": None,
+             "overlay": overlay_from_numpy(
+                 _served_pack(rng, keys), dev)}
     card = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    print(json.dumps({"device": card, "keys": args.keys,
-                      "queries": QUERIES, "height": h,
-                      "trees": list(trees)}), flush=True)
+    print(json.dumps({"device": card, "keys": args.keys, "queries": sizes,
+                      "height": h, "leaf_cap": cap, "overlay_cap": OV_CAP,
+                      "trees": list(trees)}),
+          flush=True)
+    first = next(iter(trees.values()))
+    ref = first.lookup_plain(arrs, cases["overlay"], qt, h)
+    _agree({n: t.lookup_plain(arrs, cases["overlay"], qt, h)
+            for n, t in trees.items()}, ref, "lookup_plain")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev) \
+        if cuda else None
     order = list(trees)
     for r in range(ROUNDS):
+        if cuda:
+            _sweep(trees, "fused_lookup", arrs, cases, qs, h, flush, r,
+                   args.reps, cap)
         for name in (order if r % 2 == 0 else order[::-1]):
             ops = trees[name]
             for case, ovr in cases.items():
                 def fn():
                     return ops.lookup_plain(arrs, ovr, qt, h)
                 fn()
-                out = {"round": r, "tree": name, "case": case,
+                out = {"row": "plain", "round": r, "tree": name,
+                       "case": case, "Q": QUERIES,
                        "wall_ms": _wall_ms(fn, args.reps, cuda),
                        "aten_ops": _aten_ops(fn)}
                 if cuda:
                     out["device_ms"] = _device_ms(fn, args.reps)
                 print(json.dumps(out), flush=True)
+    if not cuda:
+        return 0
+    if args.lm:
+        lm_arrs, lm_keys, lm_h = _lm_case(dev)
+        lm_q = {lm_keys.shape[0]: keys_to_tensor(lm_keys, dev)}
+        lm_cap = lm_arrs["leaf_keys"].shape[1]
+        for r in range(ROUNDS):
+            _sweep(trees, "fused_lookup", lm_arrs, {"lm": None}, lm_q, lm_h,
+                   flush, r, args.reps * 2, lm_cap)
+    if args.shards:
+        del arrs, di, idx
+        torch.cuda.empty_cache()
+        part = partition_bulkload(keys, payloads_for(keys), args.shards)
+        sdi = stack_device_indexes(
+            [build_device_index(sh) for sh in part.shards], part.bounds)
+        stk = stacked_device_arrays(sdi, device=dev)
+        sh = max(sdi.max_inner_height, 3)
+        print(json.dumps({"shards": args.shards, "height": sh,
+                          "leaf_pool": list(sdi.leaf_keys.shape)}),
+              flush=True)
+        for r in range(ROUNDS):
+            _sweep(trees, "fused_lookup_sharded", stk, cases, qs, sh, flush,
+                   r, args.reps, sdi.leaf_keys.shape[2],
+                   stk["bounds"].numel())
     return 0
 
 

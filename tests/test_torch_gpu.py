@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import Aulid, AulidConfig, BlockDevice, DeltaOverlay
 from repro_torch.core import lookup as port
 from repro_torch.core.device_index import build_device_index
-from repro_torch.core.keys import key_f64, keys_to_tensor
+from repro_torch.core.keys import key_f64, keys_from_tensor, keys_to_tensor
 from repro_torch.core.workloads import make_dataset, payloads_for
 from repro_torch.kernels.fused_lookup import ops as k1
 from repro_torch.kernels.inner_probe import ops as k5
@@ -87,6 +87,136 @@ def test_fused_lookup_empty_mirror(cuda):
     exp = k1.lookup_plain(arrs, None, q, 3)
     for g, e in zip(got, exp):
         assert torch.equal(g, e)
+
+
+# ------------------------------------------ K1's overlay probe and staged rows
+# pack capacities around the 33-way search's part sizes (33, 33^2 = 1089)
+OV_CAPS = [1, 2, 32, 33, 34, 1089, 1090, 1 << 16]
+OV_FILLS = ["few", "full", "padding"]
+# row geometries: an odd leaf cap (8-byte copies; BT rows of 181 keys in
+# slice-sized chunks), an even one not a multiple of 32, a mirror with no
+# PA or BT node (caps of 1), PA rows longer than the 16-key slice
+STAGE_GEOMS = {"leaf33": dict(leaf_capacity=33),
+               "leaf34": dict(leaf_capacity=34),
+               "no-pa": dict(lipp_inner=True),
+               "leaf16": dict(leaf_capacity=16)}
+# (live shards, slots): "flat" is the monolithic form; (6, 8) pads with
+# placeholder shards whose bounds are UINT64_MAX
+LAYOUTS = {"flat": None, "s1": (1, 0), "s2": (2, 0), "s6of8": (6, 8)}
+_K1_CACHE: dict = {}
+
+
+def _k1_case(cuda, geom, layout):
+    """(keys, mirror or stack, height, sharded) of 50k ``osm`` keys, built
+    once per (geometry, layout)."""
+    from repro_torch.core import partition_bulkload
+    from repro_torch.core.device_index import stack_device_indexes
+    if (geom, layout) not in _K1_CACHE:
+        keys = make_dataset("osm", 50_000, seed=1)
+        cfg = AulidConfig(**{**GEOMS, **STAGE_GEOMS}[geom])
+        if LAYOUTS[layout] is None:
+            idx = Aulid(BlockDevice(block_bytes=cfg.block_bytes), cfg=cfg)
+            idx.bulkload(keys, payloads_for(keys))
+            di = build_device_index(idx)
+            case = (keys, port.device_arrays(di, cuda),
+                    max(di.max_inner_height, 3), False)
+        else:
+            live, slots = LAYOUTS[layout]
+            part = partition_bulkload(keys, payloads_for(keys), live, cfg=cfg)
+            sdi = stack_device_indexes(
+                [build_device_index(sh) for sh in part.shards], part.bounds,
+                min_shards=slots)
+            case = (keys, port.stacked_device_arrays(sdi, device=cuda),
+                    max(sdi.max_inner_height, 3), True)
+        _K1_CACHE[(geom, layout)] = case
+    return _K1_CACHE[(geom, layout)]
+
+
+def _k1_same(cuda, mirror, sharded, ovr, q, h):
+    """Both forms' launch == their plain version, bit for bit."""
+    fn = k1.fused_lookup_sharded if sharded else k1.fused_lookup
+    plain = k1.lookup_sharded_plain if sharded else k1.lookup_plain
+    n = fn.launches
+    got = fn(mirror, ovr, q, h)
+    assert fn.launches == n + 1
+    _same(got, plain(mirror, ovr, q, h))
+    return got
+
+
+def _ov_pack(rng, keys, cap, fill):
+    """A sorted (3, cap) pack: ``few`` live entries, ``full`` (key 0 and
+    2**64-2 among them) or all ``padding``; about half the live keys are
+    the mirror's, a quarter of the entries tombstones."""
+    n = {"few": min(3, cap), "full": cap, "padding": 0}[fill]
+    edge = np.array([0, 2**64 - 2] if fill == "full" else [],
+                    np.uint64)[:n]
+    mine = np.setdiff1d(rng.choice(keys, n // 2, replace=False), edge)
+    rand = np.setdiff1d(rng.integers(1, 2**64 - 2, 2 * n + 2,
+                                     dtype=np.uint64),
+                        np.concatenate([edge, mine]))
+    live = np.concatenate([edge, mine, rng.permutation(rand)])[:n]
+    return _pack(rng, live, cap)
+
+
+@pytest.mark.parametrize("fill", OV_FILLS)
+@pytest.mark.parametrize("cap", OV_CAPS)
+def test_fused_lookup_overlay_probe_matches_plain(cuda, cap, fill):
+    """K1's 33-way overlay search == the plain count(ok < q), both forms:
+    queries at 0, at u64 max (the padding key) and at every pack key and
+    its neighbours, over packs of few live entries, full and all
+    padding."""
+    rng = np.random.default_rng(cap)
+    keys = _k1_case(cuda, "512b", "flat")[0]
+    pack = _ov_pack(rng, keys, cap, fill)
+    live = pack[0][pack[0] != UM]
+    near = np.concatenate([live, live - np.uint64(1), live + np.uint64(1)])
+    qn = np.concatenate([np.array([0, 1, 2**64 - 2, UM], np.uint64), near,
+                         rng.choice(keys, 500),
+                         rng.integers(0, UM, 200, dtype=np.uint64)])
+    for layout in ("flat", "s2"):
+        _, mirror, h, sharded = _k1_case(cuda, "512b", layout)
+        q = keys_to_tensor(qn, cuda)
+        ovr = port.overlay_from_numpy(pack, cuda)
+        found = _k1_same(cuda, mirror, sharded, ovr, q, h)[1]
+        # every live pack key hits: found unless a tombstone
+        assert np.array_equal(found[4:4 + live.size].cpu().numpy(),
+                              pack[2][:live.size] == 0)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("geom", list(STAGE_GEOMS))
+def test_fused_lookup_staged_rows_match_plain(cuda, geom, layout):
+    """K1's rows staged by cp.async == the plain version, both forms, with
+    and without an overlay: odd leaf and BT caps (8-byte copies), even caps
+    that are not a multiple of 32, PA and BT rows in several chunks, PA/BT
+    caps of 1; the sharded form at 1, 2 and 8 shard slots (placeholders
+    past the 6 live ones)."""
+    keys, mirror, h, sharded = _k1_case(cuda, geom, layout)
+    shape = (lambda f: mirror[f].shape[-1])
+    plan = k1._stage_plan(shape("leaf_keys"), shape("pa_keys"),
+                          shape("bt_keys"))
+    for bit, f in ((k1.WIDE_LEAF, "leaf_keys"), (k1.WIDE_PA, "pa_keys"),
+                   (k1.WIDE_BT, "bt_keys")):
+        assert bool(plan.wide & bit) == (shape(f) % 2 == 0)
+    if geom == "no-pa":
+        assert shape("pa_keys") == shape("bt_keys") == 1
+    rng = np.random.default_rng(len(geom))
+    qn = _queries(keys, rng)
+    if sharded:
+        bounds = keys_from_tensor(mirror["bounds"]) if \
+            mirror["bounds"].numel() else np.empty(0, np.uint64)
+        qn = np.concatenate([qn] + [np.array(
+            [b - 1, b, b + 1] if 0 < b < UM else [b], np.uint64)
+            for b in bounds])
+    q = keys_to_tensor(qn, cuda)
+    ov = DeltaOverlay()
+    for k in rng.integers(0, 2**62, 300, dtype=np.uint64):
+        ov.record_insert(int(k), int(k) % 1009)
+    for k in rng.choice(keys, 100):
+        ov.record_delete(int(k))
+    for ovr in (None, port.overlay_arrays(ov, cuda)):
+        got = _k1_same(cuda, mirror, sharded, ovr, q, h)
+        assert got[1][:3000].any()
 
 
 def _pack(rng, keys, cap):
