@@ -8,9 +8,9 @@ printed):
 
 1. card and build: the ``nvidia-smi`` name/power-limit line; all six CUDA
    kernels built from ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel) with ptxas' register and spill report (K1's registers,
-   static shared memory and spills under ``ptxas`` in its ``kernels``
-   entry, its shared-memory plan under ``plan``);
+   parallel) with ptxas' register and spill report (each kernel's
+   registers, static shared memory and spills under ``ptxas`` in its
+   ``kernels`` entry, K1's shared-memory plan under ``plan``);
 2. kernel == plain version, exactly, on the card: K1 ``fused_lookup`` on
    four 200k-key mirrors of the scaled 512-B geometry and a 20M-key ``osm``
    mirror of the default geometry, each without and with an overlay of
@@ -190,27 +190,41 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(text: str) -> dict:
+    """One library's ptxas report summed over its entry functions (K6 has
+    one a template instance): their count, the most registers and static
+    shared memory of any, and the spill bytes of all."""
+    import re
+    used = re.findall(r"Used (\d+) registers[^\n]*", text)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        text)
+    smem = [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
+    if not used or not spills:
+        raise AssertionError(f"unreadable ptxas report:\n{text}")
+    return {"entries": len(used),
+            "registers": max(int(r) for r in used),
+            "static_smem_bytes": max(smem, default=0),
+            "spill_store_bytes": sum(int(a) for a, _ in spills),
+            "spill_load_bytes": sum(int(b) for _, b in spills)}
+
+
 def build_kernels() -> dict:
     """Build every kernel (one nvcc each, in parallel), log ptxas' report
-    and return K1's: registers, static shared memory and spills."""
-    import re
+    of every entry function and return each library's summary
+    (:func:`ptxas_report`) by kernel name."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build(*KERNELS)
     log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.3f} s")
-    for name, text in _build.BUILD_LOG.items():
+    out = {}
+    for name in KERNELS:
+        text = _build.BUILD_LOG[name]
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
-    text = _build.BUILD_LOG["fused_lookup"]
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      text)
-    smem = re.search(r"(\d+) bytes smem", text)
-    return {"registers": int(re.search(r"Used (\d+) registers",
-                                       text).group(1)),
-            "static_smem_bytes": int(smem.group(1)) if smem else 0,
-            "spill_store_bytes": int(spill.group(1)),
-            "spill_load_bytes": int(spill.group(2))}
+        out[name] = ptxas_report(text)
+        log(f"ptxas {name}: {json.dumps(out[name])}")
+    return out
 
 
 # ------------------------------------------------------------------- phase 2
@@ -1362,12 +1376,14 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
     # bytes each must move (inputs read once, outputs written once, only
     # what this batch touches): K4 each distinct leaf row's keys, then per
     # query its row id, key, the payload at the rank, payload + found out;
-    # K5 per query its slot, key, next_occ, one slot key, tag and ptr,
-    # kind + val out; K3 per query its key, the pack key and payload at
-    # the rank, payload + hit + tomb out, and the tombstone flag of a hit
+    # K5 and K3 as their ops' k5_bytes / k3_bytes count them on this data
+    walk = k5.probe_walk(arrs, s0, q)
     bytes_ = {"leaf_search": rows * C * 8 + Q * (4 + 8 + 8 + 9),
-              "inner_probe": Q * (4 + 8 + 4 + 8 + 4 + 4 + 8),
-              "overlay_probe": Q * (8 + 8 + 8 + 10) + hits * 8}
+              "inner_probe": k5.k5_bytes(*walk),
+              "overlay_probe": k3.k3_bytes(Q, hits)}
+    log(f"staged K5 walks at Q={Q}: stale hops "
+        f"{torch.bincount(walk[1], minlength=4).tolist()}, slot records "
+        f"{torch.bincount(walk[0], minlength=5).tolist()}")
 
     # the whole staged batch on the host clock, beside K1's read of it
     def host_ms(fn, reps=10):
@@ -1853,7 +1869,6 @@ def main() -> int:
     compaction_phase(dev)
     sharded_maintenance(dev)
     kernels = measure(mp, par, dev)
-    kernels[0]["ptxas"] = ptxas
     kernels += staged_phase(mp, par, dev, card)
     s, keys = mp["summary"], mp["keys"]
     del mp                  # free the monolithic index and its tensors
@@ -1882,6 +1897,7 @@ def main() -> int:
     kernels.append(k6_timing(dev, card, par,
                              lm["launches"]["paged_attention"]))
     for k in kernels:
+        k["ptxas"] = ptxas[k["name"]]
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
             f"time, stream held (mean "
             f"{k['mean_ms']} ms; plain median {k['plain_ms']} ms,"

@@ -29,19 +29,21 @@
 // about half of HBM's rate.  The design shortens the chain three ways:
 //
 // 1. The overlay probe is a warp-cooperative 33-way lower bound
-//    (warp_lower_bound): each round lane l loads the splitter that closes
-//    the l-th of 33 equal parts of the window, __ballot_sync marks those
-//    below q (a prefix: the pack is sorted, padding last) and __popc picks
-//    the part.  n candidates become floor(n / 33), so a pack of 2^24 slots
-//    takes 5 dependent rounds where a binary search took 24-25.  It
-//    returns exactly count(ok < q), the TPU kernel's compare-and-sum.
+//    (warp_lower_bound, device_common.cuh, shared with K3): each round
+//    lane l loads the splitter that closes the l-th of 33 equal parts of the
+//    window, __ballot_sync marks those below q (a prefix: the pack is
+//    sorted, padding last) and __popc picks the part.  n candidates
+//    become floor(n / 33), so a pack of 2^24 slots takes 5 dependent
+//    rounds where a binary search took 24-25.  It returns exactly
+//    count(ok < q), the TPU kernel's compare-and-sum.
 // 2. One round trip for each visited slot: the stale walk loads a slot's
 //    key, successor, tag and pointer together at one clamped index and
 //    leaves as soon as the slot is not stale (the walk is idempotent from
 //    there), so a level costs three dependent trips (node fields, next_occ,
 //    slot record) where it cost four.  The record's (and a node's, and an
-//    overlay hit's) loads are asm volatile (ld_*): as plain loads, nvcc
-//    sank the tag and pointer below the walk's exit, a second trip.
+//    overlay hit's) loads are asm volatile (ld_*, device_common.cuh,
+//    shared with K5): as plain loads, nvcc sank the tag and pointer below
+//    the walk's exit, a second trip.
 // 3. Rows are staged into shared memory with cp.async (staged_rank): each
 //    warp copies its leaf row (and a PA/BT row on the way) into its own
 //    slice of dynamic shared memory in one batch of asynchronous copies,
@@ -84,11 +86,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_common.cuh"
+
 namespace {
 
 constexpr int TAG_DATA = 1, TAG_PA = 2, TAG_BT = 3, TAG_MIXED = 4;
 constexpr int MAX_WARPS = 8;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 // bits of Mirror::wide: that pool's rows are copied 16 bytes at a time
 constexpr int WIDE_LEAF = 1, WIDE_PA = 2, WIDE_BT = 4;
 
@@ -124,22 +127,7 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// global loads nvcc may not move (asm volatile, through the read-only
-// path): a record's fields issue back to back, one round trip, and none is
-// sunk below a loop's exit, as nvcc does to a plain load whose value is
-// used only after the loop (it split the slot record into two trips)
-__device__ __forceinline__ int ld_i32(const int32_t* p) {
-  int v;
-  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ int64_t ld_i64(const int64_t* p) {
-  int64_t v;
-  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
-
+// a node's f64 fields, loaded as ld_i32 / ld_i64 are (device_common.cuh)
 __device__ __forceinline__ double ld_f64(const double* p) {
   double v;
   asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
@@ -208,25 +196,6 @@ __device__ __forceinline__ int staged_rank(int64_t* slice, const int64_t* row,
     c += stage_count(slice, len, q, lane);
   }
   return __reduce_add_sync(FULL_MASK, c);
-}
-
-// count(ok[0..cap) < q) over a sorted pack (padding sorts last) by a 33-way
-// lower bound: the count lies in [lo, lo + n]; lane l reads the splitter
-// closing the l-th of 33 parts of `step` candidates, the ballot of those
-// below q is a prefix of c lanes, and the count lies in part c.  n becomes
-// floor(n / 33): floor(log33(cap)) + 1 dependent rounds.
-__device__ __forceinline__ int warp_lower_bound(const int64_t* ok, int cap,
-                                                int64_t q, int lane) {
-  int lo = 0, n = cap;
-  while (n > 0) {
-    const int step = n / 33 + 1;
-    const int j = (lane + 1) * step - 1;
-    const bool below = j < n && ok[lo + j] < q;
-    const int c = __popc(__ballot_sync(FULL_MASK, below));
-    lo += c * step;
-    n = min(step - 1, n - c * step);
-  }
-  return lo;
 }
 
 // at most 32 registers a thread, so 8 blocks (64 warps) fit an SM: the

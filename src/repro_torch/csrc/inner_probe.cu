@@ -10,26 +10,41 @@
 // when the chain ended (slot < 0).  Output equals the TPU kernel's bit for
 // bit.
 //
-// What bounds it on the H100: latency.  A query makes at most 6 dependent
-// 4- or 8-byte loads (next_occ, then key and successor per hop, then tag
-// and ptr) from the flat slot pools; the bytes are a few dozen per query.
-// The TPU kernel DMAs the whole 128-slot block of six pools into VMEM and
-// gathers from it with one-hot reduces.  Here one thread takes one query
-// and loads only the slots the walk visits, straight from the flat pools:
-// no blocked copy of the pools exists, because the block is only a bound
-// test against [base, base + 128).  Slots come from predictions (< S),
-// next_occ or succ_slot, so the padding the TPU's blocked pools carry is
-// never read.  The query slot is clamped into [0, n_slots), as the plain
-// version does.  Keys arrive biased (signed order is key order).
+// What bounds it on the H100: latency.  A query's bytes are a few dozen
+// (its slot and key, next_occ, a slot record a visited slot, kind and val
+// out), so its time is its chain of dependent loads, an L2 or HBM round
+// trip a link.  The TPU kernel DMAs the whole 128-slot block of six pools
+// into VMEM and gathers from it with one-hot reduces.  Here one thread
+// takes one query and loads only the slots the walk visits, straight from
+// the flat pools: no blocked copy of the pools exists, because the block
+// is only a bound test against [base, base + 128).  Slots come from
+// predictions (< S), next_occ or succ_slot, so the padding the TPU's
+// blocked pools carry is never read.  The query slot is clamped into
+// [0, n_slots), as the plain version does.
+//
+// The design: one round trip for each visited slot.  A visited in-block
+// slot's whole record (key, successor, tag, pointer) is loaded together
+// with ld_* (device_common.cuh, shared with K1): asm volatile loads that
+// nvcc cannot sink below the walk's exit, so the walk decides from
+// registers and the stopping slot's tag and pointer are already held.  A
+// query makes 3 + h dependent trips at h stale hops (its slot and key,
+// next_occ, h + 1 records) where a thread that loaded the key, then the
+// successor after the compare, then the tag and pointer after the loop
+// made 4 + 2h.  No record is loaded unless its slot lies in the block.
+// Blocks of 64 threads spread the served 8192 queries over 128 SMs, not 32
+// as 256-thread blocks did (the two timed equal on the card, PERF.md §6).
+// Keys arrive biased (signed order is key order).
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device_common.cuh"
 
 namespace {
 
 constexpr int SPB = 128;          // slots per inner block
 constexpr int STALE_HOPS = 3;     // the mirror's bound on stale entries
 constexpr int KIND_END = 6, KIND_CONT = 7;
-constexpr int THREADS = 256;
+constexpr int THREADS = 64;
 
 __global__ void __launch_bounds__(THREADS)
 inner_probe_kernel(const int32_t* __restrict__ slot_tag,
@@ -47,19 +62,20 @@ inner_probe_kernel(const int32_t* __restrict__ slot_tag,
   const int base = (s / SPB) * SPB;
   const int64_t q = queries[i];
   int cur = next_occ[s];
-  for (int k = 0; k < STALE_HOPS; ++k) {
-    if (cur < base || cur >= base + SPB || !(slot_key[cur] < q)) break;
-    cur = succ_slot[cur];
-  }
-  int kind, val;
-  if (cur < 0) {
-    kind = KIND_END;
-    val = cur;
-  } else if (cur >= base && cur < base + SPB) {
-    kind = slot_tag[cur];
-    val = slot_ptr[cur];
-  } else {
-    kind = KIND_CONT;
+  // cur < 0 (the chain ended) lies outside every block: base >= 0
+  int kind = cur < 0 ? KIND_END : KIND_CONT, val = cur;
+  for (int k = 0; cur >= base && cur < base + SPB; ++k) {
+    const int64_t key = ld_i64(slot_key + cur);
+    const int succ = ld_i32(succ_slot + cur);
+    const int tag = ld_i32(slot_tag + cur);
+    const int ptr = ld_i32(slot_ptr + cur);
+    if (k == STALE_HOPS || !(key < q)) {
+      kind = tag;
+      val = ptr;
+      break;
+    }
+    cur = succ;
+    kind = cur < 0 ? KIND_END : KIND_CONT;
     val = cur;
   }
   out_kind[i] = kind;

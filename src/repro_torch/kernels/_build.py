@@ -5,8 +5,10 @@ Each source ``csrc/<name>.cu`` exports a plain ``extern "C"`` interface
 (pointers, ints and the stream; the return value is ``cudaGetLastError()``),
 so it compiles in seconds without PyTorch's headers.  The library is built
 at first use into ``_build/`` beside the package (listed in ``.gitignore``),
-named by a hash of its source and flags so an edited source never loads a
-stale build.  A missing CUDA toolkit raises; nothing falls back.
+named by a hash of its source, of every header beside it (``csrc/*.cuh``,
+such as the device helpers K1, K3 and K5 share in ``device_common.cuh``)
+and of the flags, so an edited source or header never loads a stale build.
+A missing CUDA toolkit raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -42,10 +44,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD / f"lib{name}-{tag}.so"
+    """The library of ``csrc/<name>.cu``, tagged by the source, every
+    ``csrc/*.cuh`` (name and text) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -62,6 +62,43 @@ def probe_level_plain(arrs: dict, slots: torch.Tensor, q: torch.Tensor):
     return kind.to(torch.int32), val.to(torch.int32)
 
 
+def probe_walk(arrs: dict, slots: torch.Tensor, q: torch.Tensor):
+    """What K5's walk visits for each query, from the plain walk: (records:
+    in-block slot records reached, 0-4; hops: stale hops taken, 0-3; stop:
+    whether the walk stopped on an in-block slot, whose tag and pointer it
+    emits), each int64 per query."""
+    key, succ = arrs["slot_key"], arrs["succ_slot"]
+    s = slots.long().clamp(0, key.shape[0] - 1)
+    base = s // SPB * SPB
+    cur = arrs["next_occ"][s].long()
+    records = torch.zeros_like(cur)
+    hops = torch.zeros_like(cur)
+    stop = torch.zeros_like(cur)
+    walking = torch.ones_like(cur, dtype=torch.bool)
+    for k in range(STALE_HOPS + 1):
+        inb = walking & (cur >= base) & (cur < base + SPB)
+        records += inb
+        if k == STALE_HOPS:
+            stop += inb
+            break
+        lc = torch.where(inb, cur, 0)
+        walking = inb & (key[lc] < q)
+        stop += inb & ~walking
+        hops += walking
+        cur = torch.where(walking, succ[lc].long(), cur)
+    return records, hops, stop
+
+
+def k5_bytes(records, hops, stop) -> int:
+    """Bytes a K5 launch must move on its data (:func:`probe_walk`): a
+    query's slot and key in, ``next_occ``, kind and val out; a key for each
+    compare (at most 3), a successor for each hop, tag and pointer where
+    the walk stops in the block."""
+    return int(records.numel() * (4 + 8 + 4 + 8)
+               + 8 * records.clamp(max=STALE_HOPS).sum() + 4 * hops.sum()
+               + 8 * stop.sum())
+
+
 # ------------------------------------------------------------------ wrapper
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.inner_probe_launch

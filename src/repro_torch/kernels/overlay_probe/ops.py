@@ -42,12 +42,48 @@ def overlay_probe_plain(ovr: dict, q: torch.Tensor):
             hit & (pack[2][posc] != 0))
 
 
+# threads an SM holds at once (H100: 2048; K3's 256-thread blocks of 17-20
+# registers fit 8 an SM)
+RESIDENT_THREADS = 2048
+
+
+def k3_lanes(Q: int, sms: int) -> int:
+    """K3's lanes a query for a batch of ``Q`` on ``sms`` SMs: the most, a
+    power of two up to a warp, for which the batch's ``Q * lanes`` threads
+    fit on the card at once, and 1 (a binary search) past that."""
+    lanes = 32
+    while lanes > 1 and Q * lanes > sms * RESIDENT_THREADS:
+        lanes //= 2
+    return lanes
+
+
+def lower_bound_rounds(cap: int, lanes: int = 32) -> int:
+    """Dependent rounds of K3's (lanes + 1)-way search over ``cap`` slots
+    (``group_lower_bound``, its longest path): floor(log_{lanes+1}(cap)) +
+    1, 5 at 2^24 for a warp.  A query's round trips are these, its key
+    before them and the record at its rank after (counted from the source,
+    not measured)."""
+    rounds = 0
+    while cap > 0:
+        cap //= lanes + 1
+        rounds += 1
+    return rounds
+
+
+def k3_bytes(Q: int, hits: int) -> int:
+    """Bytes a K3 launch must move on its data: a query's key in, the key
+    and payload at its rank, payload, hit and tombstone out; the tombstone
+    flag of each of the ``hits``."""
+    return Q * (8 + 8 + 8 + 10) + hits * 8
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.overlay_probe_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int,        # pack, cap
                    ctypes.c_void_p, ctypes.c_int,        # queries, count
                    ctypes.c_void_p, ctypes.c_void_p,     # out pay, hit
                    ctypes.c_void_p,                      # out tomb
+                   ctypes.c_int,                         # lanes a query
                    ctypes.c_void_p]                      # stream
     fn.restype = ctypes.c_int
 
@@ -57,7 +93,8 @@ def overlay_probe(ovr: dict, q: torch.Tensor):
     queries ``q``.  Returns (payload int64 bits, hit bool, tombstone bool).
 
     CPU tensors run :func:`overlay_probe_plain`; CUDA tensors launch K3
-    (counted in ``overlay_probe.launches``)."""
+    with :func:`k3_lanes` lanes a query (counted in
+    ``overlay_probe.launches``)."""
     if q.device.type == "cpu":
         return overlay_probe_plain(ovr, q)
     if q.device.type != "cuda":
@@ -81,9 +118,12 @@ def overlay_probe(ovr: dict, q: torch.Tensor):
     if Q == 0:
         return pay, hit, tomb
     stream = torch.cuda.current_stream(dev).cuda_stream
+    lanes = k3_lanes(Q, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
     err = lib.overlay_probe_launch(pack.data_ptr(), pack.shape[1],
                                    q.data_ptr(), Q, pay.data_ptr(),
-                                   hit.data_ptr(), tomb.data_ptr(), stream)
+                                   hit.data_ptr(), tomb.data_ptr(), lanes,
+                                   stream)
     _build.check(err, "overlay_probe")
     overlay_probe.launches += 1
     return pay, hit, tomb

@@ -1,11 +1,12 @@
-"""Time K1 from several source trees of the port, interleaved in one process
-on one card, so that two versions are compared on one host: each tree's
-kernel over a sweep of batch sizes, and its plain version (``lookup_plain``,
-the read of every ``device="cpu"`` engine):
+"""Time K1 (and with ``--staged`` K3 and K5) from several source trees of the
+port, interleaved in one process on one card, so that two versions are
+compared on one host: each tree's kernel over a sweep of batch sizes, and
+K1's plain version (``lookup_plain``, the read of every ``device="cpu"``
+engine):
 
     python -m repro_torch.launch.time_plain --keys 200000000 \\
         --tree before=smoke_tree/old/src --tree after=src \\
-        --queries 256,1024,8192,65536 --shards 8 --lm
+        --queries 256,1024,8192,65536 --shards 8 --lm --staged
 
 Each ``--tree NAME=SRC`` loads ``SRC/repro_torch`` as a package of its own,
 which builds its kernels into its own ``_build/``; the mirrors are built by
@@ -26,7 +27,20 @@ row a measurement, in two rounds (the second in reverse tree order):
   32 pages, no overlay: the LM serving step's translation;
 - ``plain``: the plain version at Q = 8192, its median wall time (host and
   device, synchronized), on the card also its device time with the stream
-  held until the call is enqueued, and the aten operations one call runs.
+  held until the call is enqueued, and the aten operations one call runs;
+- ``staged`` (with ``--staged``): at each ``--queries`` batch size, each
+  tree's K5 ``probe_level`` on the slots of the staged read's own first
+  two K5 launches over the same mirror and queries (round 1's root
+  predictions, round 2's slots), and its K3 ``overlay_probe`` on the
+  served pack, beside ``torch.searchsorted``'s rank: device times as for
+  ``kernel``, each held to the first tree's plain version, with its bytes
+  bound and its dependent round trips a query as counted from the sources
+  (K5: its slot and key, ``next_occ``, a record a visited slot, mean and
+  most, with the walk's hops and records; K3, in a ``k3_plan`` row for the
+  running package's kernel: the lanes a query this batch gets, and its
+  key, the search's rounds and the record);
+  and a ``floor`` row a round, a one-element fill timed the same way: the
+  launch and the events alone, no dependent load.
 
 On the CPU (``--device cpu``) only the ``plain`` rows are printed.
 """
@@ -39,6 +53,7 @@ import json
 import pathlib
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -53,14 +68,20 @@ OV_CAP, OV_LIVE = 1 << 24, 28_160   # the served overlay pack (PERF.md §6)
 LM_SLOTS, LM_PAGES = 8, 32  # the LM engine's slots and pages a sequence
 
 
-def _load_tree(name: str, src: str):
+def _load_tree(name: str, src: str) -> types.SimpleNamespace:
+    """``SRC/repro_torch`` as the package ``name``: its kernels' ops
+    modules, K1 (``k1``), K3 (``k3``) and K5 (``k5``)."""
     init = pathlib.Path(src).resolve() / "repro_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
         name, init, submodule_search_locations=[str(init.parent)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(name + ".kernels.fused_lookup.ops")
+    ops = name + ".kernels.{}.ops"
+    return types.SimpleNamespace(**{
+        k: importlib.import_module(ops.format(m)) for k, m in
+        (("k1", "fused_lookup"), ("k3", "overlay_probe"),
+         ("k5", "inner_probe"))})
 
 
 def _wall_ms(fn, reps: int, cuda: bool) -> float:
@@ -158,12 +179,12 @@ def _sweep(trees: dict, form: str, mirror: dict, cases: dict, qs: dict,
     each overlay case and batch, held to the first tree's plain version."""
     sharded = form == "fused_lookup_sharded"
     plain = "lookup_sharded_plain" if sharded else "lookup_plain"
-    first = next(iter(trees.values()))
+    first = next(iter(trees.values())).k1
     order = list(trees) if r % 2 == 0 else list(trees)[::-1]
     for case, ovr in cases.items():
         for Q, qt in qs.items():
             exp = getattr(first, plain)(mirror, ovr, qt, h)
-            outs = {n: getattr(trees[n], form)(mirror, ovr, qt, h)
+            outs = {n: getattr(trees[n].k1, form)(mirror, ovr, qt, h)
                     for n in order}
             _agree(outs, exp, f"{form} Q={Q} {case}")
             rows = int(torch.unique(exp[2]).numel())
@@ -171,7 +192,7 @@ def _sweep(trees: dict, form: str, mirror: dict, cases: dict, qs: dict,
             nbytes = k1_bytes(Q, walks, rows, cap, ovr is not None, sharded,
                               n_bounds)
             for name in order:
-                fn = getattr(trees[name], form)
+                fn = getattr(trees[name].k1, form)
                 ms = _device_ms(lambda: fn(mirror, ovr, qt, h), reps,
                                 KERNEL_HOLD_CYCLES, flush)
                 print(json.dumps({
@@ -179,6 +200,81 @@ def _sweep(trees: dict, form: str, mirror: dict, cases: dict, qs: dict,
                     "case": case, "Q": Q, "device_ms": ms,
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                     "leaf_rows": rows, "walks": walks}), flush=True)
+
+
+def _staged_inputs(pi, qs: dict) -> dict:
+    """K5's inputs at each batch size: the slots of the staged read's own
+    first two K5 launches (round 1's root predictions, round 2's slots),
+    taken from the running package's ``inner_probe_lookup(..., trace=[])``
+    on the same queries, so the hop mix is the served one; with each
+    round's walk (``probe_walk``: records, hops, stop)."""
+    from ..kernels.inner_probe.ops import inner_probe_lookup, probe_walk
+    out = {}
+    for Q, qt in qs.items():
+        trace = []
+        inner_probe_lookup(pi, qt, trace=trace)
+        slots = [args[1] for fn, args, _ in trace if fn == "probe_level"]
+        out[Q] = {r + 1: (s, probe_walk(pi.arrs, s, qt))
+                  for r, s in enumerate(slots[:2])}
+    return out
+
+
+def _staged_sweep(trees: dict, arrs: dict, ovr: dict, qs: dict,
+                  k5_in: dict, flush, r: int, reps: int) -> None:
+    """One round of staged rows: every tree's K5 on each round's slots and
+    K3 on the served pack at each batch size, held to the first tree's
+    plain versions, beside their bounds, dependent trips a query and
+    ``torch.searchsorted`` (K3's rank)."""
+    from ..kernels.inner_probe.ops import k5_bytes
+    from ..kernels.overlay_probe.ops import (k3_bytes, k3_lanes,
+                                             lower_bound_rounds)
+    first = next(iter(trees.values()))
+    order = list(trees) if r % 2 == 0 else list(trees)[::-1]
+    pack = ovr["ov_pack"]
+    one = torch.zeros(1, dtype=torch.int64, device=pack.device)
+    print(json.dumps({"row": "floor", "round": r, "device_ms": _device_ms(
+        one.zero_, reps, KERNEL_HOLD_CYCLES, flush)}), flush=True)
+    for Q, qt in qs.items():
+        for rnd, (s, walk) in k5_in[Q].items():
+            exp = first.k5.probe_level_plain(arrs, s, qt)
+            trips = 2 + walk[0]
+            for name in order:
+                fn = trees[name].k5.probe_level
+                _agree({name: fn(arrs, s, qt)}, exp,
+                       f"inner_probe Q={Q} round {rnd}")
+                ms = _device_ms(lambda: fn(arrs, s, qt), reps,
+                                KERNEL_HOLD_CYCLES, flush)
+                print(json.dumps({
+                    "row": "staged", "round": r, "tree": name,
+                    "kernel": "inner_probe", "input": f"round {rnd}",
+                    "Q": Q, "device_ms": ms,
+                    "bound_ms": k5_bytes(*walk) / HBM_BYTES_PER_S * 1e3,
+                    "trips_mean": float(trips.double().mean()),
+                    "trips_max": int(trips.max()),
+                    "hops": torch.bincount(walk[1], minlength=4).tolist(),
+                    "records": torch.bincount(walk[0],
+                                              minlength=5).tolist()}),
+                      flush=True)
+        exp = first.k3.overlay_probe_plain(ovr, qt)
+        _agree({n: trees[n].k3.overlay_probe(ovr, qt) for n in order}, exp,
+               f"overlay_probe Q={Q}")
+        bound = k3_bytes(Q, int(exp[1].sum())) / HBM_BYTES_PER_S * 1e3
+        lanes = k3_lanes(Q, torch.cuda.get_device_properties(
+            pack.device).multi_processor_count)
+        print(json.dumps({"row": "k3_plan", "round": r, "Q": Q,
+                          "lanes": lanes, "trips": lower_bound_rounds(
+                              pack.shape[1], lanes) + 2}), flush=True)
+        runs = [(n, trees[n].k3.overlay_probe) for n in order] \
+            + [("torch.searchsorted", None)]
+        for name, fn in runs:
+            call = (lambda: torch.searchsorted(pack[0], qt)) if fn is None \
+                else (lambda: fn(ovr, qt))
+            ms = _device_ms(call, reps, KERNEL_HOLD_CYCLES, flush)
+            print(json.dumps({
+                "row": "staged", "round": r, "tree": name,
+                "kernel": "overlay_probe", "input": "served pack", "Q": Q,
+                "device_ms": ms, "bound_ms": bound}),
+                  flush=True)
 
 
 def main(argv=None) -> int:
@@ -192,8 +288,12 @@ def main(argv=None) -> int:
                     help="also time the sharded form over S range shards")
     ap.add_argument("--lm", action="store_true",
                     help="also time the kernel on an LM page table's mirror")
+    ap.add_argument("--staged", action="store_true",
+                    help="also time K5 and K3 at each batch size on the "
+                         "staged read's inputs")
     ap.add_argument("--tree", action="append", required=True,
-                    help="NAME=SRC: time SRC/repro_torch's K1")
+                    help="NAME=SRC: time SRC/repro_torch's K1 (and with "
+                         "--staged its K3 and K5)")
     args = ap.parse_args(argv)
 
     from ..core import Aulid, BlockDevice, partition_bulkload
@@ -230,8 +330,8 @@ def main(argv=None) -> int:
                       "trees": list(trees)}),
           flush=True)
     first = next(iter(trees.values()))
-    ref = first.lookup_plain(arrs, cases["overlay"], qt, h)
-    _agree({n: t.lookup_plain(arrs, cases["overlay"], qt, h)
+    ref = first.k1.lookup_plain(arrs, cases["overlay"], qt, h)
+    _agree({n: t.k1.lookup_plain(arrs, cases["overlay"], qt, h)
             for n, t in trees.items()}, ref, "lookup_plain")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev) \
         if cuda else None
@@ -241,7 +341,7 @@ def main(argv=None) -> int:
             _sweep(trees, "fused_lookup", arrs, cases, qs, h, flush, r,
                    args.reps, cap)
         for name in (order if r % 2 == 0 else order[::-1]):
-            ops = trees[name]
+            ops = trees[name].k1
             for case, ovr in cases.items():
                 def fn():
                     return ops.lookup_plain(arrs, ovr, qt, h)
@@ -262,6 +362,12 @@ def main(argv=None) -> int:
         for r in range(ROUNDS):
             _sweep(trees, "fused_lookup", lm_arrs, {"lm": None}, lm_q, lm_h,
                    flush, r, args.reps * 2, lm_cap)
+    if args.staged:
+        from ..kernels.inner_probe.ops import ProbeIndex
+        k5_in = _staged_inputs(ProbeIndex(arrs, di.inner_height), qs)
+        for r in range(ROUNDS):
+            _staged_sweep(trees, arrs, cases["overlay"], qs, k5_in, flush, r,
+                          args.reps)
     if args.shards:
         del arrs, di, idx
         torch.cuda.empty_cache()

@@ -150,3 +150,39 @@ def test_failed_build_keeps_writes(monkeypatch):
     assert _drive(ref, trace[2:]) == _drive(port, trace[2:])
     _same_stats(ref, port)
     assert port.stats()["failed_swaps"] == 1
+
+
+# The falsifying draw of the reference's tests/test_overlay_merge.py::
+# TestEngineWritePath::test_property_stream_vs_dict_oracle (backend jnp):
+# get(1) is served in step 1, and insert(1, 0) comes only at op 11.  That
+# test holds each get to the dict after the whole stream; a get answers the
+# dict at the step that served it.
+ORACLE_STREAM = ([("i", 0, 0)] * 7 + [("g", 1, 0)] + [("i", 0, 0)] * 3
+                 + [("i", 1, 0)])
+
+
+def test_get_answers_the_dict_at_its_step():
+    """Both engines, fed the stream as that test feeds it (a step every 8
+    ops, then ``run()``), answer get(1) with None, the dict at step 1, and
+    agree request for request; a get after the stream sees the insert."""
+    keys, ref, port = _pair(n=600, seed=1, gamma=0.02, overlay_merge=True)
+    assert 1 not in set(int(k) for k in keys)
+    out = []
+    for eng in (ref, port):
+        checks = []
+        for j, (op, k, p) in enumerate(ORACLE_STREAM):
+            if op == "i":
+                eng.insert(k, p)
+            elif op == "d":
+                eng.delete(k)
+            else:
+                checks.append((k, eng.get(k)))
+            if (j + 1) % 8 == 0:
+                eng.step()
+        eng.run()
+        after = eng.get(1)
+        eng.run()
+        out.append([(k, r.done, r.result) for k, r in checks]
+                   + [(1, after.done, after.result)])
+    assert out[0] == out[1] == [(1, True, None), (1, True, 0)]
+    _same_stats(ref, port)

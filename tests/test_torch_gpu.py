@@ -396,6 +396,112 @@ def test_overlay_probe_kernel_matches_plain(cuda):
         assert not got[2][-1] and got[0][-1] == 0
 
 
+# K3's 33-way warp search at caps around its part sizes (33, 33^2 = 1089,
+# 33^3 = 35937) and the served 2^24; batches that are not a multiple of a
+# block's 8 warps
+K3_CAPS = [1, 2, 32, 33, 34, 1088, 1089, 1090, 35937, 35938, 1 << 24]
+K3_BATCHES = [1, 7, 8193]
+
+
+def _k3_lane_batches(dev) -> dict:
+    """A batch for each group size K3 takes below a warp (16, 8, 4, 2
+    lanes a query, then 1): the largest that gets it, less one, so that
+    it fills no whole block; and one query past the card's room."""
+    room = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * k3.RESIDENT_THREADS
+    out = {g: room // g - 1 for g in (16, 8, 4, 2)} | {1: room + 1}
+    assert {g: k3.k3_lanes(Q, room // k3.RESIDENT_THREADS)
+            for g, Q in out.items()} == {g: g for g in out}
+    return out
+
+
+def _k3_queries(pack, rng):
+    """Every live key, every gap between them (key +- 1), below all keys,
+    biased INT64_MIN and INT64_MAX (u64 0 and max, the padding key), and
+    random keys; shuffled, the edges first."""
+    live = pack[0][pack[0] != UM]
+    gaps = np.concatenate([live - np.uint64(1), live + np.uint64(1)]) \
+        if live.size else np.empty(0, np.uint64)
+    edges = np.array([0, UM, live[0] - np.uint64(1) if live.size else 5],
+                     np.uint64)
+    rest = np.concatenate([live, gaps, rng.integers(0, UM, 500,
+                                                    dtype=np.uint64)])
+    return np.concatenate([edges, rng.permutation(rest)])
+
+
+@pytest.mark.parametrize("fill", ["tombstones", "padding"])
+@pytest.mark.parametrize("cap", K3_CAPS)
+def test_overlay_probe_warp_search_matches_plain(cuda, cap, fill):
+    """K3 == its plain version bit for bit: a pack full of live entries (a
+    quarter tombstones; 28,160 live past 35,938 slots, the served pack's
+    count) or all padding, at every cap, for the whole query set and for
+    its first 1, 7 and 8193 queries (a warp a query), and for batches that
+    get each smaller group of lanes (the query set repeated)."""
+    rng = np.random.default_rng(cap)
+    live = 0 if fill == "padding" else min(cap, 28_160 if cap > 35_938
+                                           else cap)
+    keys = np.sort(rng.choice(2**62, live, replace=False).astype(np.uint64)
+                   + np.uint64(2))
+    if live == cap and cap > 1:
+        keys[-1] = UM - np.uint64(1)   # a key just below the padding's
+    pack = _pack(rng, keys, cap)
+    ovr = port.overlay_from_numpy(pack, cuda)
+    qn = _k3_queries(pack, rng)
+    for Q in K3_BATCHES + list(_k3_lane_batches(cuda).values()) \
+            + [qn.size]:
+        q = keys_to_tensor(np.resize(qn, Q), cuda)
+        n = k3.overlay_probe.launches
+        got = k3.overlay_probe(ovr, q)
+        assert k3.overlay_probe.launches == n + 1
+        _same(got, k3.overlay_probe_plain(ovr, q))
+    # INT64_MAX (u64 max) meets the padding unless the pack is full
+    assert bool(got[1][1]) == (live < cap) and not got[2][1]
+    if live:
+        assert got[1][3:].any()
+
+
+K5_BATCHES = [1, 255, 257]
+
+
+@pytest.mark.parametrize("name", ["covid", "osm"])
+def test_probe_level_walks_match_plain(cuda, name):
+    """K5 == its plain version bit for bit on walks of 0, 1, 2 and 3 stale
+    hops, on chains that leave the block (KIND_CONT) and that end
+    (KIND_END), on slots below 0 and at or past ``n_slots``, in batches of
+    1 (each case alone), 255 and 257."""
+    keys = make_dataset(name, 50_000, seed=1)
+    idx = Aulid(BlockDevice(), cfg=AulidConfig(**GEOMS["512b"]))
+    idx.bulkload(keys, payloads_for(keys))
+    arrs_cpu = port.device_arrays(build_device_index(idx), "cpu")
+    S = arrs_cpu["slot_tag"].shape[0]
+    rng = np.random.default_rng(4)
+    qn = np.resize(_queries(keys, rng), S)
+    q_cpu = keys_to_tensor(qn, "cpu")
+    slots = torch.arange(S, dtype=torch.int32)
+    kind, _ = k5.probe_level_plain(arrs_cpu, slots, q_cpu)
+    _, hops, _ = k5.probe_walk(arrs_cpu, slots, q_cpu)
+    picks = [int(np.flatnonzero((hops == h).numpy())[0]) for h in range(4)]
+    picks += [int(np.flatnonzero((kind == c).numpy())[0])
+              for c in (k5.KIND_CONT, k5.KIND_END)]
+    cs = slots[picks].tolist() + [-1, -2**31, S, S + 127, 2**31 - 1]
+    cq = qn[picks].tolist() + rng.choice(keys, 5).tolist()
+    arrs = port.device_arrays(build_device_index(idx), cuda)
+
+    def same(sl, qv):
+        s_t = torch.tensor(sl, dtype=torch.int32, device=cuda)
+        q_t = keys_to_tensor(np.array(qv, np.uint64), cuda)
+        n = k5.probe_level.launches
+        got = k5.probe_level(arrs, s_t, q_t)
+        assert k5.probe_level.launches == n + 1
+        _same(got, k5.probe_level_plain(arrs, s_t, q_t))
+
+    for sl, qv in zip(cs, cq):
+        same([sl], [qv])
+    for Q in K5_BATCHES[1:]:
+        idx_r = rng.integers(0, S, Q - len(cs))
+        same(cs + slots[idx_r].tolist(), cq + qn[idx_r].tolist())
+
+
 def test_staged_read_on_card_matches_cpu(cuda):
     """The staged read (K5 rounds, K4 on PA/BT and leaf rows) on the card ==
     its plain path on the CPU, rounds included, and == K1's snapshot read
