@@ -55,7 +55,10 @@ printed):
    read around exactly this run; its snapshot answers equal K1's, its
    merged answers the host oracle's; every K3/K4/K5 launch of that run
    held against its plain version on the tensors it launched on, each
-   kernel timed like K1/K2 (``torch.searchsorted`` beside K3), and the
+   kernel timed like K1/K2 (``torch.searchsorted`` beside K3, and beside
+   K4 over the rows gathered beforehand), K4's bound counted from the
+   fewest sectors a search of its rows reads at any lanes a query
+   (``k4_least_sectors``) with the whole-row bound beside it, and the
    whole staged batch timed on the host clock beside K1's read of the same
    batch;
 6a. the sharded path, after the monolithic engine is freed: the main
@@ -397,8 +400,9 @@ def _check_oracle(oracle, qs: np.ndarray, pay, found) -> int:
 
 
 def k34_edge_parity(par: Parity, dev) -> None:
-    """K4 on full rows (every query above its row: rank == C, payload 0)
-    and K3 on a pack with no padding left (rank == cap)."""
+    """K4 on full rows (every query above its row: rank == C, payload 0),
+    at batches that get 16, 8 and 4 lanes a query on an H100
+    (``k4_lanes``), and K3 on a pack with no padding left (rank == cap)."""
     import torch
     from repro_torch.core.keys import keys_to_tensor
     from repro_torch.core.lookup import overlay_from_numpy
@@ -414,10 +418,14 @@ def k34_edge_parity(par: Parity, dev) -> None:
         kt = keys_to_tensor(keys.reshape(-1), dev).reshape(keys.shape)
         pt = torch.from_numpy(keys.view(np.int64) ^ 77).to(dev)
         rt, qt = torch.from_numpy(rows).to(dev), keys_to_tensor(q, dev)
-        got = k4.leaf_search(kt, pt, rt, qt)
-        par.hold("leaf_search", got, k4.leaf_search_plain(kt, pt, rt, qt))
-        if got[1][1::2].any() or got[0][1::2].any() or not got[1][::2].all():
-            raise AssertionError(f"leaf_search C={C}: rank == C misread")
+        for Q in (1000, 3000, 8192):
+            got = k4.leaf_search(kt, pt, rt[:Q], qt[:Q])
+            par.hold("leaf_search", got,
+                     k4.leaf_search_plain(kt, pt, rt[:Q], qt[:Q]))
+            if got[1][1::2].any() or got[0][1::2].any() \
+                    or not got[1][::2].all():
+                raise AssertionError(f"leaf_search C={C} Q={Q}: rank == C "
+                                     "misread")
     full = _pack(rng, rng.choice(2**62, 4096, replace=False), 4096)
     ovr = overlay_from_numpy(full, dev)
     q = keys_to_tensor(np.concatenate([full[0, :2048], np.array(
@@ -1242,8 +1250,11 @@ def measure(mp: dict, par: Parity, dev) -> list:
     bnp = _pack(rng, np.unique(fresh), 512)
     batch = overlay_from_numpy(bnp, dev)["ov_pack"]
     cap_out = pack.shape[1]
-    par.hold("overlay_merge", (overlay_merge(pack, batch, cap_out),),
+    merged = overlay_merge(pack, batch, cap_out)
+    par.hold("overlay_merge", (merged,),
              (merge_overlay_pack_torch(pack, batch, cap_out),))
+    out_live = int((merged[0] != BIASED_MAX).sum())
+    del merged
     log(f"k2 parity main path (served pack, live {live}, Cb="
         f"{batch.shape[1]}): exact")
     def k2():
@@ -1254,6 +1265,12 @@ def measure(mp: dict, par: Parity, dev) -> list:
                          PLAIN_HOLD_CYCLES)
     nb = int((batch[0] != BIASED_MAX).sum())
     k2_bytes = 24 * (live + nb) + 24 * cap_out
+    # K2's live-entry bound: the live entries in and the merged ones out,
+    # as if the output's padding were already in place (a log line, for
+    # PERF.md; the bound_ms of the kernels line is the full rewrite)
+    log(f"k2 live-entry bound: {live} + {nb} in, {out_live} out: "
+        f"{bound_ms(24 * (live + nb) + 24 * out_live)} ms against the full "
+        f"rewrite's {bound_ms(k2_bytes)} ms")
     log(f"timing shapes: K1 Q={Q} height={h} leaf rows={rows} overlay "
         f"cap={pack.shape[1]} (live {live}); K2 Ca={pack.shape[1]} "
         f"Cb={batch.shape[1]} cap_out={cap_out}")
@@ -1356,12 +1373,15 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     keys, pays = arrs["leaf_keys"], arrs["leaf_pay"]
     pack = ovr["ov_pack"]
+    # K4's library call: the rank alone, over the rows gathered beforehand
+    blk = keys[leaf.long()]
+    qc = q[:, None].contiguous()
     t = {
         "inner_probe": (lambda: k5.probe_level(arrs, s0, q),
                         lambda: k5.probe_level_plain(arrs, s0, q), None),
         "leaf_search": (lambda: k4.leaf_search(keys, pays, leaf, q),
                         lambda: k4.leaf_search_plain(keys, pays, leaf, q),
-                        None),
+                        lambda: torch.searchsorted(blk, qc)),
         "overlay_probe": (lambda: k3.overlay_probe(ovr, q),
                           lambda: k3.overlay_probe_plain(ovr, q),
                           lambda: torch.searchsorted(pack[0], q)),
@@ -1370,17 +1390,29 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
               time_cuda(p, 10, flush, PLAIN_HOLD_CYCLES),
               time_cuda(lib, 50, flush) if lib else None)
           for k, (f, p, lib) in t.items()}
+    del blk, qc
     hits = int(k3.overlay_probe(ovr, q)[1].sum())
     rows = int(torch.unique(leaf).numel())
     C = keys.shape[1]
     # bytes each must move (inputs read once, outputs written once, only
-    # what this batch touches): K4 each distinct leaf row's keys, then per
-    # query its row id, key, the payload at the rank, payload + found out;
+    # what this batch touches): K4 the fewest sectors a search of these
+    # rows reads at any lanes a query (k4_least_sectors), then per query
+    # its row id and key, the payload at the rank, payload + found out
+    # (beside it the whole-row count: each distinct leaf row read whole);
     # K5 and K3 as their ops' k5_bytes / k3_bytes count them on this data
     walk = k5.probe_walk(arrs, s0, q)
-    bytes_ = {"leaf_search": rows * C * 8 + Q * (4 + 8 + 8 + 9),
+    lanes = k4.k4_lanes(C, Q, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    rank, _, sectors = k4.k4_walk(keys, leaf, q, lanes)
+    least, least_lanes = k4.k4_least_sectors(keys, leaf, q)
+    bytes_ = {"leaf_search": k4.k4_bytes(Q, least, int((rank < C).sum())),
               "inner_probe": k5.k5_bytes(*walk),
               "overlay_probe": k3.k3_bytes(Q, hits)}
+    k4_extra = {"lanes": lanes,
+                "whole_row_bound_ms": bound_ms(k4.k4_row_bytes(Q, rows, C))}
+    log(f"staged K4 at Q={Q}, C={C} over {rows} leaf rows: {lanes} lanes a "
+        f"query (k4_lanes) read {sectors.numel()} sectors; the fewest, "
+        f"{least}, at {least_lanes} lanes, make the search bound")
     log(f"staged K5 walks at Q={Q}: stale hops "
         f"{torch.bincount(walk[1], minlength=4).tolist()}, slot records "
         f"{torch.bincount(walk[0], minlength=5).tolist()}")
@@ -1417,7 +1449,8 @@ def staged_phase(mp: dict, par: Parity, dev, card: str) -> list:
             "bound_ms": bound_ms(bytes_[k]),
             "bound_by": "bytes",
             "library_ms": float(np.median(lm)) if lm is not None else None,
-            "parity": "exact", "cases": par.cases[k]})
+            "parity": "exact", "cases": par.cases[k],
+            **(k4_extra if k == "leaf_search" else {})})
     return out
 
 

@@ -1,11 +1,13 @@
-// Device helpers shared by K1 fused_lookup, K3 overlay_probe and K5
-// inner_probe (csrc/fused_lookup.cu, overlay_probe.cu, inner_probe.cu).
+// Device helpers shared by K1 fused_lookup, K3 overlay_probe, K4
+// leaf_search and K5 inner_probe (csrc/fused_lookup.cu, overlay_probe.cu,
+// leaf_search.cu, inner_probe.cu).
 // Each source includes this header and builds into its own library; the
 // build tag hashes every csrc/*.cuh beside the source, so an edited header
 // never loads a stale build (kernels/_build.py).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -58,4 +60,38 @@ __device__ __forceinline__ int group_lower_bound(const int64_t* ok, int n,
 __device__ __forceinline__ int warp_lower_bound(const int64_t* ok, int cap,
                                                 int64_t q, int lane) {
   return group_lower_bound<32>(ok, cap, q, lane, FULL_MASK);
+}
+
+// The group of G lanes (a power of two up to 32, aligned in its warp) that
+// takes one query in a block of THREADS threads (K3, K4): the lane's index
+// in its group, the group's lanes in its warp (group_lower_bound's mask)
+// and its query's index; blocks(nq) is a batch's grid.
+template <int G, int THREADS>
+struct LaneGroup {
+  int l;
+  unsigned mask;
+  int qi;
+  __device__ __forceinline__ LaneGroup() {
+    const int lane = threadIdx.x & 31;
+    l = lane & (G - 1);
+    mask = (((1u << (G - 1)) << 1) - 1u) << (lane & ~(G - 1));
+    qi = blockIdx.x * (THREADS / G) + threadIdx.x / G;
+  }
+  static int blocks(int nq) {
+    return static_cast<int>(
+        (static_cast<long long>(nq) * G + THREADS - 1) / THREADS);
+  }
+};
+
+// f(std::integral_constant<int, G>()) for G == lanes, a power of two up to
+// MAX_G (a launcher's `lanes` argument); false, and no call, for any other
+// value.
+template <int MAX_G, typename F>
+inline bool dispatch_lanes(int lanes, F&& f) {
+  if (lanes == MAX_G) {
+    f(std::integral_constant<int, MAX_G>());
+    return true;
+  }
+  if constexpr (MAX_G > 1) return dispatch_lanes<MAX_G / 2>(lanes, f);
+  return false;
 }

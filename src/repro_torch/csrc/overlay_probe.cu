@@ -49,16 +49,14 @@ overlay_probe_kernel(const int64_t* __restrict__ pack, int cap,
                      int64_t* __restrict__ out_pay,
                      bool* __restrict__ out_hit,
                      bool* __restrict__ out_tomb) {
-  const int lane = threadIdx.x & 31;
-  const int l = lane & (G - 1);
-  const unsigned mask = (((1u << (G - 1)) << 1) - 1u) << (lane & ~(G - 1));
-  const int qi = blockIdx.x * (THREADS / G) + threadIdx.x / G;
+  const LaneGroup<G, THREADS> g;
+  const int qi = g.qi;
   // a query past the batch searches nothing (n = 0) but keeps its lanes
   // in the warp's ballots
   const bool live = qi < nq;
   const int64_t q = live ? queries[qi] : 0;
-  const int pos = group_lower_bound<G>(pack, live ? cap : 0, q, l, mask);
-  if (!live || l != 0) return;
+  const int pos = group_lower_bound<G>(pack, live ? cap : 0, q, g.l, g.mask);
+  if (!live || g.l != 0) return;
   bool hit = false, tomb = false;
   int64_t pay = 0;
   if (pos < cap) {
@@ -73,19 +71,6 @@ overlay_probe_kernel(const int64_t* __restrict__ pack, int cap,
   out_tomb[qi] = tomb;
 }
 
-template <int G>
-void launch(const void* pack, int cap, const void* queries, int nq,
-            void* out_pay, void* out_hit, void* out_tomb,
-            cudaStream_t stream) {
-  const long long threads = static_cast<long long>(nq) * G;
-  const int blocks = static_cast<int>((threads + THREADS - 1) / THREADS);
-  overlay_probe_kernel<G><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const int64_t*>(pack), cap,
-      static_cast<const int64_t*>(queries), nq,
-      static_cast<int64_t*>(out_pay), static_cast<bool*>(out_hit),
-      static_cast<bool*>(out_tomb));
-}
-
 }  // namespace
 
 // lanes: the group size G, a power of two up to 32 (ops.k3_lanes)
@@ -95,19 +80,16 @@ extern "C" int overlay_probe_launch(const void* pack, int cap,
                                     void* out_tomb, int lanes, void* stream) {
   if (nq > 0) {
     const auto st = static_cast<cudaStream_t>(stream);
-    void (*fn)(const void*, int, const void*, int, void*, void*, void*,
-               cudaStream_t);
-    switch (lanes) {
-      case 32: fn = launch<32>; break;
-      case 16: fn = launch<16>; break;
-      case 8: fn = launch<8>; break;
-      case 4: fn = launch<4>; break;
-      case 2: fn = launch<2>; break;
-      case 1: fn = launch<1>; break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    fn(pack, cap, queries, nq, out_pay, out_hit, out_tomb,
-       static_cast<cudaStream_t>(stream));
+    const bool ok = dispatch_lanes<32>(lanes, [&](auto lanes_c) {
+      constexpr int G = decltype(lanes_c)::value;
+      overlay_probe_kernel<G><<<LaneGroup<G, THREADS>::blocks(nq), THREADS,
+                                0, st>>>(
+          static_cast<const int64_t*>(pack), cap,
+          static_cast<const int64_t*>(queries), nq,
+          static_cast<int64_t*>(out_pay), static_cast<bool*>(out_hit),
+          static_cast<bool*>(out_tomb));
+    });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

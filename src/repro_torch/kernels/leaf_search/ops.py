@@ -10,6 +10,10 @@ the reference passes a zero hi plane.  As in the reference, the payload at
 the rank is returned whether or not the key matches, and 0 when the rank
 equals the row width.
 
+The kernel searches each row (it is sorted, padding last) with a group of
+:func:`k4_lanes` lanes a query; :func:`k4_walk` re-walks that search on
+the tensors, and :func:`k4_bytes` counts what the function must move.
+
 Dispatch is by the query tensor's device: a CPU tensor runs
 :func:`leaf_search_plain`, a CUDA tensor launches the kernel or raises.
 """
@@ -20,6 +24,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..overlay_probe.ops import lower_bound_rounds
 
 
 def leaf_search_plain(keys: torch.Tensor, pay: torch.Tensor,
@@ -37,6 +42,104 @@ def leaf_search_plain(keys: torch.Tensor, pay: torch.Tensor,
     return torch.where(in_row, pay[r, posc], 0), found
 
 
+MAX_LANES = 16        # K4's lanes a query at most
+THREADS_PER_SM = 256  # the batch's threads past which K4 takes fewer lanes
+SECTOR = 32           # bytes of the memory system's smallest read
+
+
+def k4_lanes(C: int, Q: int, sms: int) -> int:
+    """K4's lanes a query for a batch of ``Q`` rows of width ``C`` on
+    ``sms`` SMs: ``MAX_LANES``, no more than a power of two that covers
+    the row (more lanes than keys load nothing: one round either way), and
+    halved while the batch's ``Q * lanes`` threads pass one 256-thread
+    block an SM; 1 (a binary search) from ``sms * 256`` queries.  On an
+    H100 (132 SMs): 16 lanes to 2,112 queries, 8 to 4,224, 4 to 8,448, 2
+    to 16,896, then 1.
+
+    Why (``python -m repro_torch.launch.time_plain --staged``, device ms
+    in turns, L2 flushed; H100 80GB HBM3, 700 W; PERF.md §6): at the
+    staged read's 8192 queries on 256-key leaf rows, 1, 2, 4, 8 and 16
+    lanes took 0.0117, 0.0107-0.0108, 0.0109-0.0111, 0.0119 and 0.0131
+    ms: fewer lanes touch fewer sectors and take more rounds.  At 256 and
+    1024 queries the rounds rule (8-16 lanes 0.0073 and 0.0079-0.0082, 1
+    lane 0.0099-0.0102 and 0.0102-0.0104); from 32,768 queries one lane
+    is fastest (0.0182-0.0184 against 4 lanes' 0.0202-0.0203).  Rows of
+    64 and 1020 keys crossed over at about the same batch sizes, so the
+    width sets no lanes beyond the cover."""
+    lanes = MAX_LANES
+    while lanes > 1 and (lanes >= 2 * C
+                         or Q * lanes > sms * THREADS_PER_SM):
+        lanes //= 2
+    return lanes
+
+
+def k4_trips(C: int, lanes: int) -> int:
+    """Dependent round trips a query, counted from the source, not
+    measured: the query and its row id, the search's rounds over ``C`` keys
+    (its longest path, ``lower_bound_rounds``), the key and payload at the
+    rank."""
+    return 1 + lower_bound_rounds(C, lanes) + 1
+
+
+def k4_walk(keys: torch.Tensor, rows: torch.Tensor, q: torch.Tensor,
+            lanes: int):
+    """K4's search as the kernel's group runs it (``group_lower_bound``
+    over each query's row, all queries at once): (rank int64, rounds int64
+    a query, the distinct ``SECTOR``-byte sectors of ``keys`` its splitter
+    loads touch, as addresses // ``SECTOR``).  The key at a rank below C
+    lies among them: the top of a search's interval is always a splitter
+    it loaded and found not below q, or C."""
+    L, C = keys.shape
+    flat = keys.reshape(-1)
+    base = rows.long().clamp(0, L - 1) * C
+    lo = torch.zeros_like(base)
+    n = torch.full_like(base, C)
+    rounds = torch.zeros_like(base)
+    part = torch.arange(1, lanes + 1, device=keys.device)
+    touched = []
+    while bool((n > 0).any()):
+        step = n // (lanes + 1) + 1
+        j = part * step[:, None] - 1
+        ok = j < n[:, None]
+        at = base[:, None] + lo[:, None] + j
+        below = ok & (flat[torch.where(ok, at, 0)] < q[:, None])
+        touched.append(at[ok])
+        rounds += n > 0
+        c = below.sum(1)
+        lo += c * step
+        n = torch.minimum(step - 1, n - c * step)
+    at = torch.cat(touched) if touched else base[:0]
+    sectors = torch.unique((keys.data_ptr() + 8 * at) // SECTOR)
+    return lo, rounds, sectors
+
+
+def k4_least_sectors(keys: torch.Tensor, rows: torch.Tensor,
+                     q: torch.Tensor) -> tuple[int, int]:
+    """The fewest sectors of ``keys`` the search of these queries needs,
+    whatever lanes a launch takes: the least over 1-32 lanes a query of
+    what :func:`k4_walk` touches, and the lanes that give it.  The search
+    bound counts these, so that a change of :func:`k4_lanes` moves the
+    time and not the yardstick."""
+    return min((int(k4_walk(keys, rows, q, g)[2].numel()), g)
+               for g in (1, 2, 4, 8, 16, 32))
+
+
+def k4_bytes(Q: int, sectors: int, in_row: int) -> int:
+    """Bytes a K4 launch must move on its data (the search bound): a
+    query's key and row id in, the ``sectors`` of keys its search reads
+    (:func:`k4_least_sectors`; the key at the rank lies in one of them), the
+    payload at the rank for the ``in_row`` queries whose rank is below C,
+    payload and found out."""
+    return Q * (8 + 4 + 9) + SECTOR * sectors + 8 * in_row
+
+
+def k4_row_bytes(Q: int, rows: int, C: int) -> int:
+    """The whole-row bound: each of the ``rows`` distinct rows read whole,
+    and per query its row id, key, the payload at the rank, payload and
+    found out (the first port's count)."""
+    return rows * C * 8 + Q * (4 + 8 + 8 + 9)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.leaf_search_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,     # keys, pay
@@ -44,6 +147,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                    ctypes.c_void_p, ctypes.c_void_p,     # rows, queries
                    ctypes.c_int,                         # query count
                    ctypes.c_void_p, ctypes.c_void_p,     # out pay, found
+                   ctypes.c_int,                         # lanes a query
                    ctypes.c_void_p]                      # stream
     fn.restype = ctypes.c_int
 
@@ -69,10 +173,11 @@ def _check(keys, pay, rows, q) -> None:
 def leaf_search(keys: torch.Tensor, pay: torch.Tensor, rows: torch.Tensor,
                 q: torch.Tensor):
     """Search row ``rows[i]`` of the sorted (L, C) biased-key pool ``keys``
-    for ``q[i]``.  Returns (payload int64 bits at the rank, found bool).
+    (each row sorted, padding last) for ``q[i]``.  Returns (payload int64
+    bits at the rank, found bool).
 
-    CPU tensors run :func:`leaf_search_plain`; CUDA tensors launch K4
-    (counted in ``leaf_search.launches``)."""
+    CPU tensors run :func:`leaf_search_plain`; CUDA tensors launch K4 with
+    :func:`k4_lanes` lanes a query, counted in ``leaf_search.launches``."""
     if q.device.type == "cpu":
         return leaf_search_plain(keys, pay, rows, q)
     if q.device.type != "cuda":
@@ -85,10 +190,13 @@ def leaf_search(keys: torch.Tensor, pay: torch.Tensor, rows: torch.Tensor,
     if Q == 0:
         return out_pay, found
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    lanes = k4_lanes(keys.shape[1], Q, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     err = lib.leaf_search_launch(keys.data_ptr(), pay.data_ptr(),
                                  keys.shape[0], keys.shape[1],
                                  rows.data_ptr(), q.data_ptr(), Q,
-                                 out_pay.data_ptr(), found.data_ptr(), stream)
+                                 out_pay.data_ptr(), found.data_ptr(), lanes,
+                                 stream)
     _build.check(err, "leaf_search")
     leaf_search.launches += 1
     return out_pay, found

@@ -1,8 +1,8 @@
-"""Time K1 (and with ``--staged`` K3 and K5) from several source trees of the
-port, interleaved in one process on one card, so that two versions are
-compared on one host: each tree's kernel over a sweep of batch sizes, and
-K1's plain version (``lookup_plain``, the read of every ``device="cpu"``
-engine):
+"""Time K1 (and with ``--staged`` K3, K4 and K5) from several source trees
+of the port, interleaved in one process on one card, so that two versions
+are compared on one host: each tree's kernel over a sweep of batch sizes,
+and K1's plain version (``lookup_plain``, the read of every
+``device="cpu"`` engine):
 
     python -m repro_torch.launch.time_plain --keys 200000000 \\
         --tree before=smoke_tree/old/src --tree after=src \\
@@ -39,6 +39,18 @@ row a measurement, in two rounds (the second in reverse tree order):
   most, with the walk's hops and records; K3, in a ``k3_plan`` row for the
   running package's kernel: the lanes a query this batch gets, and its
   key, the search's rounds and the record);
+  and its K4 ``leaf_search`` on the staged read's own final leaf rows and,
+  for the narrow and wide width classes, on pools of 64- and 1020-key rows
+  drawn from the mirror's keys (rows drawn at random, a key of the row or,
+  one in ten, any key): each
+  tree's kernel at its own plan and, where its ops have a ``k4_lanes``
+  plan, its launcher called at 1, 2, 4, 8 and 16 lanes a query, beside
+  ``torch.searchsorted`` over the rows gathered beforehand (rank only, the
+  gather not timed), with the search bound (``leaf_search.ops.k4_bytes``
+  over ``k4_least_sectors``: the fewest sectors any lanes read) and the
+  whole-row bound (``k4_row_bytes``), and a ``k4_plan`` row: the lanes
+  the running package's plan gives, the trips a query and the sectors
+  read at each lanes (``k4_walk``);
   and a ``floor`` row a round, a one-element fill timed the same way: the
   launch and the events alone, no dependent load.
 
@@ -66,11 +78,13 @@ QUERIES = 8192              # the serving step's get batch
 ROUNDS = 2                  # the second in reverse tree order
 OV_CAP, OV_LIVE = 1 << 24, 28_160   # the served overlay pack (PERF.md §6)
 LM_SLOTS, LM_PAGES = 8, 32  # the LM engine's slots and pages a sequence
+K4_POOL_ROWS = 1 << 15      # rows of each K4 width-class pool
+K4_FORCED = (1, 2, 4, 8, 16)        # K4's lanes a query, each timed
 
 
 def _load_tree(name: str, src: str) -> types.SimpleNamespace:
     """``SRC/repro_torch`` as the package ``name``: its kernels' ops
-    modules, K1 (``k1``), K3 (``k3``) and K5 (``k5``)."""
+    modules, K1 (``k1``), K3 (``k3``), K4 (``k4``) and K5 (``k5``)."""
     init = pathlib.Path(src).resolve() / "repro_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
         name, init, submodule_search_locations=[str(init.parent)])
@@ -81,7 +95,7 @@ def _load_tree(name: str, src: str) -> types.SimpleNamespace:
     return types.SimpleNamespace(**{
         k: importlib.import_module(ops.format(m)) for k, m in
         (("k1", "fused_lookup"), ("k3", "overlay_probe"),
-         ("k5", "inner_probe"))})
+         ("k4", "leaf_search"), ("k5", "inner_probe"))})
 
 
 def _wall_ms(fn, reps: int, cuda: bool) -> float:
@@ -219,12 +233,130 @@ def _staged_inputs(pi, qs: dict) -> dict:
     return out
 
 
+def _k4_inputs(pi, qs: dict, keys: np.ndarray) -> dict:
+    """K4's inputs at each batch size, (keys, pay, rows, queries) by name:
+    the staged read's own final leaf search (its rows and queries, from the
+    running package's trace), and pools of the PA and BT rows' widest
+    classes (``AulidConfig``'s largest PA class, 64, and B+-tree
+    threshold, 1020 items; the covid mirror has few or none of its own):
+    ``K4_POOL_ROWS`` rows each of 40-100% of the width drawn from ``keys``,
+    sorted, padding last; each query a random row and a key of it or, one
+    in ten, any key of the range."""
+    from ..core.aulid import AulidConfig
+    from ..core.keys import keys_to_tensor
+    from ..kernels.inner_probe.ops import inner_probe_lookup
+    rng = np.random.default_rng(11)
+    cfg = AulidConfig()
+    dev = pi.arrs["leaf_keys"].device
+    pools = {}
+    for name, C in (("pa-width rows", cfg.pa_classes[-1]),
+                    ("bt-width rows", cfg.bt_threshold)):
+        kn = np.sort(rng.choice(keys, (K4_POOL_ROWS, C)), axis=1)
+        live = rng.integers(C * 2 // 5, C + 1, K4_POOL_ROWS)
+        kn[np.arange(C)[None, :] >= live[:, None]] = np.uint64(2**64 - 1)
+        kt = keys_to_tensor(kn.reshape(-1), dev).reshape(kn.shape)
+        pools[name] = (kt, torch.arange(kt.numel(), device=dev).reshape(
+            kt.shape), live)
+    lo, hi = keys_to_tensor(keys[[0, -1]], "cpu").tolist()
+    out = {}
+    for Q, qt in qs.items():
+        trace = []
+        inner_probe_lookup(pi, qt, trace=trace)
+        out[Q] = {"leaf rows": [args for fn, args, _ in trace
+                                if fn == "leaf_search"][-1]}
+        for name, (kt, pay, live) in pools.items():
+            r = rng.integers(0, K4_POOL_ROWS, Q)
+            col = (rng.random(Q) * live[r]).astype(np.int64)
+            rt = torch.from_numpy(r.astype(np.int32)).to(dev)
+            q = kt[rt.long(), torch.from_numpy(col).to(dev)].cpu().numpy()
+            q[9::10] = rng.integers(lo, hi, q[9::10].shape[0],
+                                    endpoint=True, dtype=np.int64)
+            out[Q][name] = (kt, pay, rt, torch.from_numpy(q).to(dev))
+    return out
+
+
+def _k4_forced(k4, keys, pay, rows, q, lanes: int):
+    """A tree's K4 launcher called at ``lanes`` a query, where its
+    ``leaf_search`` takes the plan's: (payload, found)."""
+    lib = k4._build.load("leaf_search", k4._bind)
+    Q = q.shape[0]
+    out = torch.empty(Q, dtype=torch.int64, device=q.device)
+    found = torch.empty(Q, dtype=torch.bool, device=q.device)
+    err = lib.leaf_search_launch(
+        keys.data_ptr(), pay.data_ptr(), keys.shape[0], keys.shape[1],
+        rows.data_ptr(), q.data_ptr(), Q, out.data_ptr(), found.data_ptr(),
+        lanes, torch.cuda.current_stream(q.device).cuda_stream)
+    k4._build.check(err, "leaf_search")
+    return out, found
+
+
+def _k4_sweep(trees: dict, k4_in: dict, flush, r: int, reps: int) -> None:
+    """One round of K4 rows at one batch size: every tree's
+    ``leaf_search`` on each input, at its plan and, where it has a lanes
+    plan, at each forced lane count, and ``torch.searchsorted`` on the
+    rows gathered beforehand, held to the first tree's plain version."""
+    from ..kernels.leaf_search.ops import (k4_bytes, k4_lanes,
+                                           k4_least_sectors, k4_row_bytes,
+                                           k4_trips, k4_walk)
+    first = next(iter(trees.values()))
+    order = list(trees) if r % 2 == 0 else list(trees)[::-1]
+    for name_in, (keys, pay, rows, q) in k4_in.items():
+        Q, C = q.shape[0], keys.shape[1]
+        exp = first.k4.leaf_search_plain(keys, pay, rows, q)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = k4_lanes(C, Q, sms)
+        n_rows = int(torch.unique(rows.long().clamp(
+            0, keys.shape[0] - 1)).numel())
+        in_row = int((k4_walk(keys, rows, q, 1)[0] < C).sum())
+        least, least_lanes = k4_least_sectors(keys, rows, q)
+        bound = k4_bytes(Q, least, in_row) / HBM_BYTES_PER_S * 1e3
+        row_bound = k4_row_bytes(Q, n_rows, C) / HBM_BYTES_PER_S * 1e3
+        print(json.dumps({"row": "k4_plan", "round": r, "input": name_in,
+                          "Q": Q, "C": C, "lanes": plan,
+                          "trips": k4_trips(C, plan), "sectors": {
+                              g: int(k4_walk(keys, rows, q, g)[2].numel())
+                              for g in (plan, *K4_FORCED)},
+                          "least_sectors": least, "least_lanes": least_lanes,
+                          "rows": n_rows, "bound_ms": bound,
+                          "row_bound_ms": row_bound}), flush=True)
+        # (tree, call, lanes it runs at: None where its plan is unknown)
+        runs = []
+        for name in order:
+            k4 = trees[name].k4
+            planned = hasattr(k4, "k4_lanes")
+            runs.append((name, lambda k4=k4: k4.leaf_search(keys, pay, rows,
+                                                            q),
+                         plan if planned else None))
+            if planned:
+                runs += [(name, lambda k4=k4, g=g: _k4_forced(
+                    k4, keys, pay, rows, q, g), g) for g in K4_FORCED]
+        for name, call, g in runs:
+            _agree({name: call()}, exp,
+                   f"leaf_search {name_in} Q={Q} lanes={g}")
+        blk = keys[rows.long().clamp(0, keys.shape[0] - 1)]
+        qc = q[:, None].contiguous()
+        runs.append(("torch.searchsorted",
+                     lambda: torch.searchsorted(blk, qc), None))
+        for name, call, lanes in runs:
+            ms = _device_ms(call, reps, KERNEL_HOLD_CYCLES, flush)
+            print(json.dumps({
+                "row": "staged", "round": r, "tree": name,
+                "kernel": "leaf_search", "input": name_in, "Q": Q, "C": C,
+                "lanes": lanes, "device_ms": ms, "bound_ms": bound,
+                "row_bound_ms": row_bound,
+                "trips": k4_trips(C, lanes) if lanes else None}),
+                  flush=True)
+        del blk
+
+
 def _staged_sweep(trees: dict, arrs: dict, ovr: dict, qs: dict,
-                  k5_in: dict, flush, r: int, reps: int) -> None:
-    """One round of staged rows: every tree's K5 on each round's slots and
-    K3 on the served pack at each batch size, held to the first tree's
-    plain versions, beside their bounds, dependent trips a query and
-    ``torch.searchsorted`` (K3's rank)."""
+                  k5_in: dict, k4_in: dict, flush, r: int,
+                  reps: int) -> None:
+    """One round of staged rows: every tree's K5 on each round's slots, K3
+    on the served pack and K4 on its inputs (:func:`_k4_sweep`) at each
+    batch size, held to the first tree's plain versions, beside their
+    bounds, dependent trips a query and ``torch.searchsorted`` (K3's and
+    K4's rank)."""
     from ..kernels.inner_probe.ops import k5_bytes
     from ..kernels.overlay_probe.ops import (k3_bytes, k3_lanes,
                                              lower_bound_rounds)
@@ -275,6 +407,7 @@ def _staged_sweep(trees: dict, arrs: dict, ovr: dict, qs: dict,
                 "kernel": "overlay_probe", "input": "served pack", "Q": Q,
                 "device_ms": ms, "bound_ms": bound}),
                   flush=True)
+        _k4_sweep(trees, k4_in[Q], flush, r, reps)
 
 
 def main(argv=None) -> int:
@@ -289,11 +422,11 @@ def main(argv=None) -> int:
     ap.add_argument("--lm", action="store_true",
                     help="also time the kernel on an LM page table's mirror")
     ap.add_argument("--staged", action="store_true",
-                    help="also time K5 and K3 at each batch size on the "
-                         "staged read's inputs")
+                    help="also time K5, K3 and K4 at each batch size on "
+                         "the staged read's inputs")
     ap.add_argument("--tree", action="append", required=True,
                     help="NAME=SRC: time SRC/repro_torch's K1 (and with "
-                         "--staged its K3 and K5)")
+                         "--staged its K3, K4 and K5)")
     args = ap.parse_args(argv)
 
     from ..core import Aulid, BlockDevice, partition_bulkload
@@ -364,10 +497,14 @@ def main(argv=None) -> int:
                    flush, r, args.reps * 2, lm_cap)
     if args.staged:
         from ..kernels.inner_probe.ops import ProbeIndex
-        k5_in = _staged_inputs(ProbeIndex(arrs, di.inner_height), qs)
+        pi = ProbeIndex(arrs, di.inner_height)
+        k5_in, k4_in = _staged_inputs(pi, qs), _k4_inputs(pi, qs, keys)
+        print(json.dumps({"k4_widths": {
+            n: v[0].shape[1] for n, v in k4_in[sizes[0]].items()}}),
+              flush=True)
         for r in range(ROUNDS):
-            _staged_sweep(trees, arrs, cases["overlay"], qs, k5_in, flush, r,
-                          args.reps)
+            _staged_sweep(trees, arrs, cases["overlay"], qs, k5_in, k4_in,
+                          flush, r, args.reps)
     if args.shards:
         del arrs, di, idx
         torch.cuda.empty_cache()

@@ -3,8 +3,8 @@ every file a library is compiled from: its ``csrc/<name>.cu`` and the
 headers beside it (``csrc/*.cuh``), so an edited source or header never
 loads a stale library.  On a temporary copy of ``csrc``; needs no nvcc.
 
-Also: the device helpers K1, K3 and K5 share are defined once, in
-``device_common.cuh``, which each of the three sources includes.
+Also: the device helpers K1, K3, K4 and K5 share are defined once, in
+``device_common.cuh``, which each of the four sources includes.
 """
 import re
 import shutil
@@ -13,7 +13,7 @@ import pytest
 
 from repro_torch.kernels import _build
 
-SHARED = ("fused_lookup", "overlay_probe", "inner_probe")
+SHARED = ("fused_lookup", "overlay_probe", "leaf_search", "inner_probe")
 HELPERS = ("FULL_MASK", "ld_i32", "ld_i64", "group_lower_bound",
            "warp_lower_bound")
 
@@ -28,7 +28,8 @@ def csrc(tmp_path, monkeypatch):
 
 
 def _tags():
-    return {n: _build._target(n).name for n in SHARED + ("leaf_search",)}
+    return {n: _build._target(n).name
+            for n in SHARED + ("overlay_merge", "paged_attention")}
 
 
 def test_tag_is_stable(csrc):
@@ -73,7 +74,7 @@ def test_includes_are_headers_beside_the_sources():
 
 @pytest.mark.parametrize("helper", HELPERS)
 def test_shared_helpers_are_defined_once(helper):
-    """K1, K3 and K5 include ``device_common.cuh``; none of the three
+    """K1, K3, K4 and K5 include ``device_common.cuh``; none of the four
     copies a helper of it."""
     define = re.compile(rf"(constexpr unsigned {helper}\b|"
                         rf"__device__[^;{{]*\b{helper}\s*\()")

@@ -346,6 +346,105 @@ def test_leaf_search_kernel_matches_plain(cuda, C):
     assert got[1][:min(C, EDGES.shape[0])].all()
 
 
+# K4's row widths: PA rows (<= 64), the leaf row (256), BT rows (<= 1020),
+# and around the search's part sizes (33, 33^2 = 1089)
+K4_CAPS = [1, 2, 8, 32, 33, 64, 255, 256, 257, 1020, 1089]
+
+
+def _k4_case(rng, C: int, dev):
+    """(48, C) sorted rows: random keys, padded tails, duplicate runs, the
+    u64 extremes, all padding; queries present, absent, edge keys, above
+    every key of a full row (rank == C), on rows out of range."""
+    L = 48
+    keys = np.sort(rng.integers(0, UM, (L, C), dtype=np.uint64), axis=1)
+    keys[1::4, rng.integers(1, C + 1):] = UM
+    runs = np.repeat(rng.integers(1, UM, C, dtype=np.uint64),
+                     rng.integers(1, 9, C))
+    keys[2::4] = np.sort(np.resize(runs, C))
+    keys[0] = np.sort(np.resize(EDGES, C))
+    keys[3] = UM
+    pay = rng.integers(0, UM, (L, C), dtype=np.uint64)
+    Q = 2000
+    rows = rng.integers(0, L, Q).astype(np.int32)
+    q = keys[rows, rng.integers(0, C, Q)]
+    q[1::5] = rng.integers(0, UM, q[1::5].shape[0], dtype=np.uint64)
+    q[2::5] += np.uint64(1)
+    full = np.nonzero(keys[:, -1] < UM)[0]
+    rows[-40:] = rng.choice(full, 40)
+    q[-40:] = keys[rows[-40:], -1] + np.uint64(1)        # rank == C
+    rows[:EDGES.shape[0]] = 0
+    q[:EDGES.shape[0]] = EDGES
+    rows[-46:-40] = [-5, -1, L, L + 9, 2**31 - 1, -2**31]
+    return (keys_to_tensor(keys.reshape(-1), dev).reshape(L, C),
+            torch.from_numpy(pay.view(np.int64).copy()).to(dev),
+            torch.from_numpy(rows).to(dev), keys_to_tensor(q, dev))
+
+
+def _k4_batch(rt, qt, Q: int):
+    """The case's rows and queries repeated to a batch of ``Q``."""
+    reps = Q // rt.shape[0] + 1
+    return rt.repeat(reps)[:Q].contiguous(), qt.repeat(reps)[:Q].contiguous()
+
+
+@pytest.mark.parametrize("C", K4_CAPS)
+def test_leaf_search_lanes_match_plain(cuda, C):
+    """K4's in-row search == its plain version bit for bit at every group
+    size ``k4_lanes`` gives this width (each reached by the largest batch
+    that gets it; one past the last halving for 1 lane), at every width, on
+    batches of 0, 1 and 33 queries (a batch that fills no warp) and the
+    whole case; rank == C gives payload 0 and no hit."""
+    rng = np.random.default_rng(C + 1)
+    kt, pt, rt, qt = _k4_case(rng, C, cuda)
+    for Q in (0, 1, 33, qt.shape[0]):
+        n = k4.leaf_search.launches
+        got = k4.leaf_search(kt, pt, rt[:Q], qt[:Q])
+        assert k4.leaf_search.launches == n + (Q > 0)
+        _same(got, k4.leaf_search_plain(kt, pt, rt[:Q], qt[:Q]))
+    assert not got[1][-40:].any() and not got[0][-40:].any()
+    assert got[1][:min(C, EDGES.shape[0])].all()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    room = sms * k4.THREADS_PER_SM
+    cover = k4.k4_lanes(C, 1, sms)
+    lanes = cover
+    while lanes >= 1:
+        Q = room // lanes + (lanes == 1)
+        assert k4.k4_lanes(C, Q, sms) == lanes
+        rows, q = _k4_batch(rt, qt, Q)
+        _same(k4.leaf_search(kt, pt, rows, q),
+              k4.leaf_search_plain(kt, pt, rows, q))
+        lanes //= 2
+
+
+def test_leaf_search_lanes_from_the_batch(cuda):
+    """Leaf-width batches that get each group size from ``k4_lanes`` (the
+    largest that gets it; one past the last halving for 1 lane) equal the
+    plain version; the launcher refuses a group size it has no kernel for
+    (3, 32) with ``cudaErrorInvalidValue``, and the wrapper's check
+    raises on it."""
+    rng = np.random.default_rng(3)
+    kt, pt, rt, qt = _k4_case(rng, 256, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    room = sms * k4.THREADS_PER_SM
+    for lanes in (16, 8, 4, 2, 1):
+        Q = room // lanes + (lanes == 1)     # the largest batch that gets it
+        assert k4.k4_lanes(256, Q, sms) == lanes
+        rows, q = _k4_batch(rt, qt, Q)
+        _same(k4.leaf_search(kt, pt, rows, q),
+              k4.leaf_search_plain(kt, pt, rows, q))
+    lib = k4._build.load("leaf_search", k4._bind)
+    out = torch.empty(qt.shape[0], dtype=torch.int64, device=cuda)
+    found = torch.empty(qt.shape[0], dtype=torch.bool, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for lanes in (3, 32):
+        err = lib.leaf_search_launch(
+            kt.data_ptr(), pt.data_ptr(), kt.shape[0], kt.shape[1],
+            rt.data_ptr(), qt.data_ptr(), qt.shape[0], out.data_ptr(),
+            found.data_ptr(), lanes, stream)
+        assert err == 1                      # cudaErrorInvalidValue
+        with pytest.raises(RuntimeError):
+            k4._build.check(err, "leaf_search")
+
+
 @pytest.mark.parametrize("name", ["covid", "planet", "genome", "osm"])
 def test_probe_level_kernel_matches_plain(cuda, name):
     """Every slot of the mirror (stale hops, chains leaving the block, chain
