@@ -21,21 +21,28 @@ printed):
    staged read ``inner_probe_lookup`` against K1 on found and found
    payloads; K4 on full rows (rank == C) and K3 on a full pack; K2
    ``overlay_merge`` on random packs (empty, all-overlap, tombstones, cap
-   growth, Ca = 2^24 with Cb = 512); K1's shard route
+   growth, Ca = 2^24 with Cb = 512), fresh and into poisoned targets
+   (garbage below their fill, which lies below and past the merged count,
+   padding after), fills held too; K1's shard route
    (``fused_lookup_sharded``) on stacks of the same datasets (200k keys in
    1, 3 and 8 shards and in 5 shards padded to 8 slots; the 20M-key osm
    mirror in 8 shards), queries at every bound +- 1, without and with an
    overlay; K2's stacked form (``overlay_merge_stacked``) on 8 rows of
-   every kind and on 8 rows of Ca = cap_out = 2^21 with Cb = 64, timed;
+   every kind, fresh and into a poisoned target with a fill a row, and on
+   8 rows of Ca = cap_out = 2^21 with Cb = 64, timed in steady state (into
+   a target holding padding past the rows' fills) and into a fresh one;
 3. the main path: ``IndexEngine`` serving 200M covid-like keys (payload =
    key + 1, default 4 KB geometry — the paper's evaluation size) for 50
    steps of 8192 gets (10% absent), 512 writes (60% new-key inserts, 30%
    updates, 10% deletes) and 16 scans of 100, every result checked against
-   a host oracle (the sorted keys plus a dict of the writes); the kernels'
+   a host oracle (the sorted keys plus a dict of the writes) and every
+   step's merged overlay pack held, after the step, to the plain merge of
+   the previous pack and the step's batch (``MergeCheck``); the kernels'
    launch counts are read around exactly this run; then a few more steps
    of the same traffic, timed phase by phase (the step's breakdown);
 4. compaction on the card: 1M keys at gamma = 0.001, synchronous and
-   background compactions, results checked the same way; then the
+   background compactions, results and merges checked the same way; then
+   the
    ``ShardedIndexEngine``'s maintenance at 1M keys in 8 shards, sync and
    async answering alike: shard-local compaction (only the hot shard
    compacts, cold shards keep their mirror epochs) and online
@@ -48,7 +55,11 @@ printed):
    launch, long enough for a plain version's hundreds of launches too, so
    ``ms`` and ``plain_ms`` are the device's time alone), their bytes
    bounds, steps/s, p99 step time and peak device memory, each beside the
-   card's name and power limit;
+   card's name and power limit; K2 in steady state (the served pack, a
+   512-entry batch, a copy of the engine's spare as the target) against
+   its live-entry bound, with its time into a fresh target (a reseed or a
+   growth), the full rewrite's bound and the launch floor (a one-element
+   fill) beside it;
 6. the staged read on the main path's mirror and served overlay pack: the
    last step's 8192 gets through ``inner_probe_lookup`` (K5 rounds, K4 on
    PA/BT and leaf rows) and ``overlay_probe`` (K3), with the launch counts
@@ -67,8 +78,9 @@ printed):
    8192 gets (uniform, 10% absent), 512 writes (60% fresh inserts in the
    hot shard 4's range, 30% updates and 10% deletes over all shards) and
    16 scans of 100 (8 starting among the last 50 keys up to a bound), every
-   result checked against the oracle, with the launch counts of K1's shard
-   route, K2 and K2's stacked form read around exactly this run (the first
+   result and every step's merged pack checked as in phase 3, with the
+   launch counts of K1's shard route, K2 and K2's stacked form read around
+   exactly this run (the first
    two launched, the stacked form not: one card keeps one flat pack),
    every shard served and no background build failed; the step's
    breakdown and its device time (``torch.profiler``); K1's shard route
@@ -173,6 +185,17 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # and the served shape: 8 rows of 89-96 tokens over the engine's pool
 K6_ROWS, K6_NP, K6_POOL = 16, 256, 4096
 K6_SERVED_ROWS, K6_SERVED_LENS = 8, (89, 96)
+
+
+# K2's bound: 24 bytes (key, payload, tombstone) for each of these
+K2_BOUND_COUNTS = ("live pack entries in, batch entries in, merged entries "
+                   "out, padding slots the target needed")
+
+
+def k2_live_bytes(live: int, batch: int, merged: int, pad: int) -> int:
+    """The bytes a merge into a target must move: its live entries in, the
+    merged ones out and the target's slots past them that held entries."""
+    return 24 * (live + batch + merged + pad)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -447,9 +470,11 @@ def _pack(rng, keys, cap: int) -> np.ndarray:
 
 
 def k2_parity(par: Parity, dev) -> None:
-    from repro_torch.core.lookup import overlay_from_numpy
+    import torch
+    from repro_torch.core.keys import BIASED_MAX
+    from repro_torch.core.lookup import empty_overlay_pack, overlay_from_numpy
     from repro_torch.kernels.overlay_merge.ops import (
-        merge_overlay_pack_torch, overlay_merge)
+        merge_overlay_into_torch, merge_overlay_pack_torch, overlay_merge)
     rng = np.random.default_rng(2)
     pool = rng.choice(2**62, size=1_200_000, replace=False).astype(np.uint64)
     cases = [
@@ -469,10 +494,25 @@ def k2_parity(par: Parity, dev) -> None:
         pa = overlay_from_numpy(a, dev)["ov_pack"]
         pb = overlay_from_numpy(b, dev)["ov_pack"]
         got = overlay_merge(pa, pb, cap_out)
-        par.hold("overlay_merge", (got,),
-                 (merge_overlay_pack_torch(pa, pb, cap_out),))
+        exp = merge_overlay_pack_torch(pa, pb, cap_out)
+        par.hold("overlay_merge", (got,), (exp,))
+        # into a poisoned target: garbage below its fill, padding past it,
+        # the fill below and past the merged count
+        n_out = int((exp[0] != BIASED_MAX).sum())
+        live = int((pa[0] != BIASED_MAX).sum())
+        for f_t in (n_out // 2, min(n_out + 100, cap_out)):
+            tgt = empty_overlay_pack(cap_out, dev)
+            tgt[:, :f_t] = torch.randint(-9, 9, (3, f_t), device=dev)
+            ref = tgt.clone()
+            n = overlay_merge(pa, pb, cap_out, out=tgt, fill=live,
+                              out_fill=f_t)
+            n_plain = merge_overlay_into_torch(pa, pb, cap_out, ref, f_t,
+                                               live)
+            par.hold("overlay_merge", (tgt, n, n), (ref, n_plain,
+                                                    n.new_tensor(n_out)))
+            par.hold("overlay_merge", (tgt,), (exp,))
         log(f"k2 parity {name}: Ca={a.shape[1]} Cb={b.shape[1]} "
-            f"cap_out={cap_out}: exact")
+            f"cap_out={cap_out}, fresh and into poisoned targets: exact")
 
 
 def _stacked(keys, shards: int, slots: int, geom: dict, dev):
@@ -552,20 +592,26 @@ def k1_sharded_parity(par: Parity, dev) -> None:
 
 def k2_stacked_parity(par: Parity, dev, card: str) -> dict:
     """K2's stacked form == its plain version, exactly: 8 rows of every
-    kind (empty rows, all-overlap, tombstones, cap growth), then 8 rows of
-    Ca = cap_out = 2^21 with Cb = 64 (the bytes of the served flat pack),
-    timed like K1/K2 beside its plain version."""
+    kind (empty rows, all-overlap, tombstones, cap growth), fresh and into
+    a poisoned target with a fill a row; then 8 rows of Ca = cap_out = 2^21
+    with Cb = 64 (the bytes of the served flat pack), timed like K1/K2 in
+    steady state (into a target holding the rows' packs: padding past
+    their fills) beside a fresh target and its plain version."""
     import torch
     from repro_torch.core.keys import BIASED_MAX
     from repro_torch.core.lookup import overlay_from_numpy
     from repro_torch.kernels.overlay_merge.ops import (
-        merge_overlay_stacked_torch, overlay_merge_stacked)
+        merge_overlay_stacked_into_torch, merge_overlay_stacked_torch,
+        overlay_merge_stacked)
     rng = np.random.default_rng(4)
     pool = rng.choice(2**62, size=2_600_000, replace=False).astype(np.uint64)
 
     def stack(rows):
         return torch.stack([overlay_from_numpy(r, dev)["ov_pack"]
                             for r in rows])
+
+    def live(t):
+        return (t[:, 0] != BIASED_MAX).sum(1).tolist()
     rows = [(_pack(rng, [], 8192), _pack(rng, pool[:300], 512)),
             (_pack(rng, pool[:512], 8192), _pack(rng, pool[:512], 512)),
             (_pack(rng, pool[:5000], 8192), _pack(rng, pool[4800:5300], 512)),
@@ -577,33 +623,64 @@ def k2_stacked_parity(par: Parity, dev, card: str) -> dict:
             (_pack(rng, pool[:8192], 8192), _pack(rng, pool[:512], 512))]
     for cap_out in (8192, 16384):
         pa, pb = stack([a for a, _ in rows]), stack([b for _, b in rows])
+        exp = merge_overlay_stacked_torch(pa, pb, cap_out)
         par.hold("overlay_merge_stacked",
-                 (overlay_merge_stacked(pa, pb, cap_out),),
-                 (merge_overlay_stacked_torch(pa, pb, cap_out),))
+                 (overlay_merge_stacked(pa, pb, cap_out),), (exp,))
+        fills = [int(f) for f in rng.integers(0, cap_out + 1, len(rows))]
+        tgt = torch.full((len(rows), 3, cap_out), 0, dtype=torch.int64,
+                         device=dev)
+        tgt[:, 0] = BIASED_MAX
+        for r, f in enumerate(fills):
+            tgt[r, :, :f] = torch.randint(-9, 9, (3, f), device=dev)
+        ref = tgt.clone()
+        n = overlay_merge_stacked(pa, pb, cap_out, out=tgt, fill=live(pa),
+                                  out_fill=fills)
+        n_plain = merge_overlay_stacked_into_torch(pa, pb, cap_out, ref,
+                                                   fills, live(pa))
+        par.hold("overlay_merge_stacked", (tgt, n, n),
+                 (ref, n_plain, n.new_tensor(live(exp))))
+        par.hold("overlay_merge_stacked", (tgt,), (exp,))
     log("k2 stacked parity S=8 (empty rows, all-overlap, tombstones, cap "
-        "growth), cap_out 8192 and 16384: exact")
+        "growth), cap_out 8192 and 16384, fresh and into poisoned targets "
+        "with a fill a row: exact")
     ca, cb = 1 << 21, 64
     big = [(_pack(rng, pool[i * 300_000:i * 300_000 + 3520], ca),
             _pack(rng, pool[i * 300_000 + 3500:i * 300_000 + 3564], cb))
            for i in range(SHARDS)]
     pa, pb = stack([a for a, _ in big]), stack([b for _, b in big])
+    fills = live(pa)
+    exp = merge_overlay_stacked_torch(pa, pb, ca)
     par.hold("overlay_merge_stacked", (overlay_merge_stacked(pa, pb, ca),),
-             (merge_overlay_stacked_torch(pa, pb, ca),))
+             (exp,))
+    tgt, ref = pa.clone(), pa.clone()
+    n = overlay_merge_stacked(pa, pb, ca, out=tgt, fill=fills,
+                              out_fill=fills)
+    n_plain = merge_overlay_stacked_into_torch(pa, pb, ca, ref, fills, fills)
+    par.hold("overlay_merge_stacked", (tgt, n, n),
+             (ref, n_plain, n.new_tensor(live(exp))))
+    par.hold("overlay_merge_stacked", (tgt,), (exp,))
+    del ref
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    km = time_cuda(lambda: overlay_merge_stacked(pa, pb, ca), 20, flush)
-    pm = time_cuda(lambda: merge_overlay_stacked_torch(pa, pb, ca), 5, flush,
-                   PLAIN_HOLD_CYCLES)
-    live = int((pa[:, 0] != BIASED_MAX).sum())
-    nb = int((pb[:, 0] != BIASED_MAX).sum())
-    nbytes = 24 * (live + nb) + 24 * SHARDS * ca
+    km = time_cuda(lambda: overlay_merge_stacked(
+        pa, pb, ca, out=tgt, fill=fills, out_fill=fills), 50, flush)
+    fm = time_cuda(lambda: overlay_merge_stacked(pa, pb, ca, fill=fills),
+                   20, flush)
+    pm = time_cuda(lambda: merge_overlay_stacked_into_torch(
+        pa, pb, ca, tgt, fills, fills), 5, flush, PLAIN_HOLD_CYCLES)
+    n_in, nb, n_out = sum(fills), sum(live(pb)), sum(live(exp))
     out = {"card": card, "rows": SHARDS, "Ca": ca, "Cb": cb, "cap_out": ca,
-           "live": live, "batch_live": nb,
+           "live": n_in, "batch_live": nb, "merged": n_out,
            "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+           "fresh_ms": float(np.median(fm)),
            "plain_ms": float(np.median(pm)),
-           "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+           "bound_ms": bound_ms(k2_live_bytes(n_in, nb, n_out, 0)),
+           "bound_by": "bytes", "bound_counts": K2_BOUND_COUNTS,
            "library_ms": None}
     log(f"k2 stacked parity S={SHARDS} Ca=cap_out={ca} Cb={cb}: exact; "
-        "timed: " + json.dumps(out))
+        "timed in steady state (fresh target: fresh_ms): " + json.dumps(out))
+    log(f"k2 stacked into a fresh target: median {out['fresh_ms']} ms "
+        "against the full rewrite's bound "
+        f"{bound_ms(24 * (n_in + nb) + 24 * SHARDS * ca)} ms")
     return out
 
 
@@ -672,14 +749,89 @@ def make_step(rng, keys: np.ndarray, lo: int, hi: int, gets: int,
     return reqs
 
 
-def serve_and_check(eng, oracle: Oracle, trace: list) -> list:
+class MergeCheck:
+    """Inside ``with``: every ``merge_overlay_pack`` of the engines (the
+    step's K2 launch) is recorded, and :meth:`check`, called after the
+    step (outside its timer), holds each merged pack to
+    ``merge_overlay_pack_torch(previous pack, batch, cap_out)``, exactly:
+    the merge into the engine's spare equals a fresh merge, padding and
+    all.  The previous pack is intact until the next step's merge, which
+    writes into it.  The plain merge's temporaries stay out of the run's
+    peak memory: ``peak`` keeps the peak before each check, and the
+    counter restarts after it."""
+
+    def __init__(self, par: Parity):
+        self.par, self.pending, self.merges, self.peak = par, [], 0, 0
+        self.batch_entries = self.overwrites = 0
+
+    def __enter__(self):
+        from repro_torch.serving import index_engine, sharded_engine
+        self.mods = (index_engine, sharded_engine)
+        self.orig = index_engine.merge_overlay_pack
+
+        def recorded(ovr, batch, cap_out, live=None):
+            new, nbytes = self.orig(ovr, batch, cap_out, live)
+            self.pending.append((ovr["ov_pack"], batch, cap_out,
+                                 new["ov_pack"]))
+            return new, nbytes
+        for m in self.mods:
+            m.merge_overlay_pack = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.merge_overlay_pack = self.orig
+        self.pending.clear()
+
+    def check(self) -> None:
+        import torch
+        from repro_torch.core.delta_overlay import next_pow2
+        from repro_torch.core.keys import BIASED_MAX
+        from repro_torch.core.lookup import overlay_from_numpy
+        from repro_torch.kernels.overlay_merge.ops import (
+            merge_overlay_pack_torch)
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        for prev, (bk, bp, bt), cap_out, got in self.pending:
+            n = bk.shape[0]
+            bpack = np.zeros((3, next_pow2(max(n, 8))), dtype=np.uint64)
+            bpack[0] = np.uint64(2**64 - 1)
+            bpack[:, :n] = np.stack([bk, bp, np.asarray(bt, np.uint64)])
+            batch = overlay_from_numpy(bpack, prev.device)["ov_pack"]
+            exp = merge_overlay_pack_torch(prev, batch, cap_out)
+            self.par.hold("overlay_merge", (got,), (exp,))
+            self.merges += 1
+            self.batch_entries += n
+            self.overwrites += n + int((prev[0] != BIASED_MAX).sum()) \
+                - int((exp[0] != BIASED_MAX).sum())
+            del exp, batch
+        # nothing of the check is held when the peak counter restarts
+        prev = got = None
+        self.pending.clear()
+        torch.cuda.reset_peak_memory_stats()
+
+    def overwrite_share(self) -> float:
+        """The share of the merged batch entries whose key the pack held
+        already (an update or a delete of an overlay key)."""
+        return self.overwrites / max(self.batch_entries, 1)
+
+    def max_memory_allocated(self) -> int:
+        """The run's peak device memory without the checks'."""
+        import torch
+        return max(self.peak, torch.cuda.max_memory_allocated())
+
+
+def serve_and_check(eng, oracle: Oracle, trace: list,
+                    merges: MergeCheck | None = None) -> list:
     """Run every step of ``trace`` through ``eng`` and check each result
-    against the oracle (the checks sit outside the engine's step timer).
-    Returns every (op, key, result)."""
+    against the oracle, and each step's overlay merge with ``merges``
+    (the checks sit outside the engine's step timer).  Returns every (op,
+    key, result)."""
     out = []
     for si, step in enumerate(trace):
         reqs = [eng.submit(*r) for r in step]
         eng.step()
+        if merges is not None:
+            merges.check()
         out += [(r.op, r.key, r.result) for r in reqs]
         for r in reqs:
             if r.op in ("insert", "delete"):
@@ -703,7 +855,7 @@ def serve_and_check(eng, oracle: Oracle, trace: list) -> list:
     return out
 
 
-def main_path(n: int, steps: int, dev, card: str) -> dict:
+def main_path(n: int, steps: int, dev, card: str, par: Parity) -> dict:
     import torch
     from repro_torch.core import Aulid, BlockDevice
     from repro_torch.core.workloads import make_dataset, payloads_for
@@ -732,11 +884,12 @@ def main_path(n: int, steps: int, dev, card: str) -> dict:
     trace = [make_step(rng, keys, lo, hi, 8192, 512, 16)
              for _ in range(steps)]
     oracle = Oracle(keys)
-    fused_lookup.launches = 0
-    overlay_merge.launches = 0
-    serve_and_check(eng, oracle, trace)
-    launches = {"fused_lookup": fused_lookup.launches,
-                "overlay_merge": overlay_merge.launches}
+    with MergeCheck(par) as merges:
+        fused_lookup.launches = 0
+        overlay_merge.launches = 0
+        serve_and_check(eng, oracle, trace, merges)
+        launches = {"fused_lookup": fused_lookup.launches,
+                    "overlay_merge": overlay_merge.launches}
     st = eng.stats()
     step_s = np.asarray(eng.step_seconds)
     out = {
@@ -748,14 +901,19 @@ def main_path(n: int, steps: int, dev, card: str) -> dict:
         "first_step_ms": float(step_s[0]) * 1e3,
         "p99_step_ms_after_first_2": float(np.percentile(step_s[2:], 99))
         * 1e3,
-        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "max_memory_allocated_bytes": int(merges.max_memory_allocated()),
+        "overwrite_share": merges.overwrite_share(),
         "overlay_merges": st["overlay_merges"],
         "compactions": st["compactions"],
         "read_backend": st["read_backend"],
-        "launches": launches,
-        "checked": "every get, write and scan result equals the oracle",
+        "launches": launches, "merges_held": merges.merges,
+        "checked": "every get, write and scan result equals the oracle; "
+                   "every merged pack equals the plain merge",
     }
     log("main path: " + json.dumps(out))
+    if merges.merges != st["overlay_merges"]:
+        raise AssertionError(f"main path: {merges.merges} merges held of "
+                             f"{st['overlay_merges']}")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"{k} was not launched on the main path")
@@ -768,18 +926,27 @@ def breakdown(eng, oracle, make, steps: int) -> dict:
     engine's phases timed on the host clock (device phases end in a
     synchronize): mean seconds per step in host writes, the overlay merge
     (batch upload + K2), gets (upload, K1, D2H, results) and scans; the rest
-    is admission and bookkeeping."""
+    is admission and bookkeeping.  Each device phase's temporaries (its
+    peak device memory above what was allocated when it began, outside the
+    timers) are logged beside."""
     import torch
     acc = {"host_writes": 0.0, "overlay_merge": 0.0, "gets": 0.0,
            "scans": 0.0}
+    temps = {"overlay_merge": 0, "gets": 0, "scans": 0}
 
     def timed(name, fn, sync):
         def run(*a, **kw):
+            if sync:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
             t = time.perf_counter()
             out = fn(*a, **kw)
             if sync:
                 torch.cuda.synchronize()
             acc[name] += time.perf_counter() - t
+            if sync:
+                temps[name] = max(temps[name],
+                                  torch.cuda.max_memory_allocated() - base)
             return out
         return run
 
@@ -800,6 +967,8 @@ def breakdown(eng, oracle, make, steps: int) -> dict:
     out["other"] = step_s - sum(out.values())
     out["step"] = step_s
     log("step breakdown (s per step): " + json.dumps(out))
+    log("device temporaries by phase (peak bytes above the allocation at "
+        "its start): " + json.dumps(temps))
     return out
 
 
@@ -873,7 +1042,7 @@ def index_profile(eng, oracle, make, steps: int, label: str) -> dict:
     return out
 
 
-def compaction_phase(dev) -> None:
+def compaction_phase(dev, par: Parity) -> None:
     from repro_torch.core import Aulid, BlockDevice
     from repro_torch.core.workloads import make_dataset, payloads_for
     from repro_torch.serving import IndexEngine
@@ -886,18 +1055,21 @@ def compaction_phase(dev) -> None:
                           async_compact=mode == "async")
         rng = np.random.default_rng(11)
         oracle = Oracle(keys)
-        for i in range(8):
-            serve_and_check(eng, oracle,
-                            [make_step(rng, keys, lo, hi, 1024, 512, 8)])
-            if i % 2:       # let every second step's build land
-                eng.drain_compactions()
-        serve_and_check(eng, oracle, [make_step(rng, keys, lo, hi, 1024, 0,
-                                                8)])
+        with MergeCheck(par) as merges:
+            for i in range(8):
+                serve_and_check(eng, oracle,
+                                [make_step(rng, keys, lo, hi, 1024, 512, 8)],
+                                merges)
+                if i % 2:       # let every second step's build land
+                    eng.drain_compactions()
+            serve_and_check(eng, oracle, [make_step(rng, keys, lo, hi, 1024,
+                                                    0, 8)], merges)
         st = eng.stats()
         log(f"compaction {mode}: compactions={st['compactions']} "
             f"swaps={st['swaps']} full_builds={st['mirror_full_builds']} "
             f"overlay_merges={st['overlay_merges']} "
-            f"reseeds={st['overlay_reseeds']}: every result checked")
+            f"reseeds={st['overlay_reseeds']}: every result and merged "
+            "pack checked")
         if st["compactions"] < 2 or (mode == "async" and st["swaps"] < 2):
             raise AssertionError(f"compaction {mode}: too few compactions")
 
@@ -986,13 +1158,14 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
     rng = np.random.default_rng(23)
     trace = [make(rng) for _ in range(SHARDED_STEPS)]
     oracle = Oracle(keys)
-    fused_lookup_sharded.launches = 0
-    overlay_merge.launches = 0
-    overlay_merge_stacked.launches = 0
-    serve_and_check(eng, oracle, trace)
-    launches = {"fused_lookup_sharded": fused_lookup_sharded.launches,
-                "overlay_merge": overlay_merge.launches,
-                "overlay_merge_stacked": overlay_merge_stacked.launches}
+    with MergeCheck(par) as merges:
+        fused_lookup_sharded.launches = 0
+        overlay_merge.launches = 0
+        overlay_merge_stacked.launches = 0
+        serve_and_check(eng, oracle, trace, merges)
+        launches = {"fused_lookup_sharded": fused_lookup_sharded.launches,
+                    "overlay_merge": overlay_merge.launches,
+                    "overlay_merge_stacked": overlay_merge_stacked.launches}
     st = eng.stats()
     step_s = np.asarray(eng.step_seconds)
     gets = np.array([r[1] for step in trace for r in step if r[0] == "get"],
@@ -1005,7 +1178,8 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
         "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
         "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
         "first_step_ms": float(step_s[0]) * 1e3,
-        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "max_memory_allocated_bytes": int(merges.max_memory_allocated()),
+        "overwrite_share": merges.overwrite_share(),
         "setup_s": {"bulkload": t1 - t0, "mirror_stack_upload": t2 - t1},
         "gets_per_shard": per_shard.tolist(),
         "compactions": st["compactions"],
@@ -1014,9 +1188,14 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
         "failed_swaps": st["failed_swaps"],
         "repart_failures": st["repart_failures"],
         "read_backend": st["read_backend"], "launches": launches,
-        "checked": "every get, write and scan result equals the oracle",
+        "merges_held": merges.merges,
+        "checked": "every get, write and scan result equals the oracle; "
+                   "every merged pack equals the plain merge",
     }
     log("sharded path: " + json.dumps(out))
+    if merges.merges != st["overlay_merges"]:
+        raise AssertionError(f"sharded path: {merges.merges} merges held of "
+                             f"{st['overlay_merges']}")
     for k in ("fused_lookup_sharded", "overlay_merge"):
         if launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the sharded path")
@@ -1213,7 +1392,7 @@ def measure(mp: dict, par: Parity, dev) -> list:
         _as_stack, _launch_plan, fused_lookup, k1_bytes, k1_walks,
         lookup_plain)
     from repro_torch.kernels.overlay_merge.ops import (
-        merge_overlay_pack_torch, overlay_merge)
+        merge_overlay_into_torch, merge_overlay_pack_torch, overlay_merge)
     from repro_torch.serving import pad_queries
 
     eng = mp["engine"]
@@ -1237,9 +1416,14 @@ def measure(mp: dict, par: Parity, dev) -> list:
     rows = int(torch.unique(leaf).numel())
     walks = k1_walks(arrs, q)
     plan = _launch_plan(_as_stack(arrs))
-    # K2 at the main path's shape: the served pack and a 512-entry batch
-    pack = ovr["ov_pack"]
+    # K2 at the main path's shape in steady state: the served pack of the
+    # last step, a 512-entry batch, and the engine's spare as the next
+    # merge finds it (padding past its fill), cloned so the engine keeps
+    # its own
+    pack, fill = ovr["ov_pack"], ovr["ov_fill"]
+    spare, spare_fill = ovr["ov_spare"]
     live = int((pack[0] != BIASED_MAX).sum())
+    spare_live = int((spare[0] != BIASED_MAX).sum())
     rng = np.random.default_rng(5)
     live_keys = keys_from_tensor(pack[0, :live]) if live else \
         np.empty(0, np.uint64)
@@ -1250,27 +1434,49 @@ def measure(mp: dict, par: Parity, dev) -> list:
     bnp = _pack(rng, np.unique(fresh), 512)
     batch = overlay_from_numpy(bnp, dev)["ov_pack"]
     cap_out = pack.shape[1]
-    merged = overlay_merge(pack, batch, cap_out)
-    par.hold("overlay_merge", (merged,),
-             (merge_overlay_pack_torch(pack, batch, cap_out),))
+    merged = merge_overlay_pack_torch(pack, batch, cap_out)
     out_live = int((merged[0] != BIASED_MAX).sum())
-    del merged
-    log(f"k2 parity main path (served pack, live {live}, Cb="
-        f"{batch.shape[1]}): exact")
+    par.hold("overlay_merge", (overlay_merge(pack, batch, cap_out),),
+             (merged,))
+    tgt, ref = spare.clone(), spare.clone()
+    n = overlay_merge(pack, batch, cap_out, out=tgt, fill=fill,
+                      out_fill=spare_fill)
+    n_plain = merge_overlay_into_torch(pack, batch, cap_out, ref, spare_fill,
+                                       fill)
+    par.hold("overlay_merge", (tgt, n, tgt), (ref, n_plain, merged))
+    del ref, merged
+    log(f"k2 parity main path (served pack, live {live} of fill bound "
+        f"{fill}; spare live {spare_live} of fill bound {spare_fill}; Cb="
+        f"{batch.shape[1]}), fresh and into the spare: exact")
+
     def k2():
-        return overlay_merge(pack, batch, cap_out)
-    k2_ms = time_cuda(k2, 20, flush)
-    k2_plain = time_cuda(lambda: merge_overlay_pack_torch(pack, batch,
-                                                          cap_out), 5, flush,
-                         PLAIN_HOLD_CYCLES)
+        return overlay_merge(pack, batch, cap_out, out=tgt, fill=fill,
+                             out_fill=spare_fill)
+    k2_ms = time_cuda(k2, 50, flush)
+    k2_fresh = time_cuda(lambda: overlay_merge(pack, batch, cap_out,
+                                               fill=fill), 20, flush)
+    k2_plain = time_cuda(lambda: merge_overlay_into_torch(
+        pack, batch, cap_out, tgt, spare_fill, fill), 5, flush,
+        PLAIN_HOLD_CYCLES)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    floor = time_cuda(one.zero_, 50, flush)
+    del tgt
     nb = int((batch[0] != BIASED_MAX).sum())
-    k2_bytes = 24 * (live + nb) + 24 * cap_out
-    # K2's live-entry bound: the live entries in and the merged ones out,
-    # as if the output's padding were already in place (a log line, for
-    # PERF.md; the bound_ms of the kernels line is the full rewrite)
-    log(f"k2 live-entry bound: {live} + {nb} in, {out_live} out: "
-        f"{bound_ms(24 * (live + nb) + 24 * out_live)} ms against the full "
-        f"rewrite's {bound_ms(k2_bytes)} ms")
+    pad = max(0, spare_live - out_live)
+    k2_bytes = k2_live_bytes(live, nb, out_live, pad)
+    k2_extra = {"fresh_ms": float(np.median(k2_fresh)),
+                "launch_floor_ms": float(np.median(floor)),
+                "bound_counts": K2_BOUND_COUNTS, "live": live,
+                "batch_live": nb, "merged": out_live,
+                "target_live": spare_live, "padding_written": pad}
+    log(f"k2 steady state: {live} + {nb} entries in, {out_live} out, "
+        f"{pad} padding slots (the spare held {spare_live}): live-entry "
+        f"bound {bound_ms(k2_bytes)} ms, median {float(np.median(k2_ms))} "
+        "ms")
+    log(f"k2 into a fresh target (a reseed or a growth): median "
+        f"{k2_extra['fresh_ms']} ms against the full rewrite's bound "
+        f"{bound_ms(24 * (live + nb) + 24 * cap_out)} ms; launch floor (one "
+        f"one-element fill) {k2_extra['launch_floor_ms']} ms")
     log(f"timing shapes: K1 Q={Q} height={h} leaf rows={rows} overlay "
         f"cap={pack.shape[1]} (live {live}); K2 Ca={pack.shape[1]} "
         f"Cb={batch.shape[1]} cap_out={cap_out}")
@@ -1293,7 +1499,7 @@ def measure(mp: dict, par: Parity, dev) -> list:
          "plain_ms": float(np.median(k2_plain)),
          "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None, "parity": "exact",
-         "cases": par.cases["overlay_merge"]},
+         "cases": par.cases["overlay_merge"], **k2_extra},
     ]
 
 
@@ -1894,12 +2100,12 @@ def main() -> int:
     k2_parity(par, dev)
     k1_sharded_parity(par, dev)
     k2s = k2_stacked_parity(par, dev, card)
-    mp = main_path(MAIN_KEYS, MAIN_STEPS, dev, card)
+    mp = main_path(MAIN_KEYS, MAIN_STEPS, dev, card, par)
     lo, hi = mp["span"]
     mp["summary"]["breakdown_s"] = breakdown(
         mp["engine"], mp["oracle"],
         lambda rng: make_step(rng, mp["keys"], lo, hi, 8192, 512, 16), 5)
-    compaction_phase(dev)
+    compaction_phase(dev, par)
     sharded_maintenance(dev)
     kernels = measure(mp, par, dev)
     kernels += staged_phase(mp, par, dev, card)

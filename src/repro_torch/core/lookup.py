@@ -94,15 +94,60 @@ def device_arrays(di: DeviceIndex, device=None) -> dict:
     return mirror_from_numpy(_di_pools(di), device)
 
 
-def overlay_from_numpy(pack, device=None) -> dict:
+def overlay_from_numpy(pack, device=None, fill: int | None = None,
+                       prev: dict | None = None) -> dict:
     """The port's overlay dict of a (3, cap) u64 overlay pack (keys,
-    payloads, tombstones; ``UINT64_MAX`` key padding)."""
+    payloads, tombstones; ``UINT64_MAX`` key padding): ``ov_pack`` on
+    ``device`` and ``ov_fill``, its live count (``fill``, counted from the
+    pack when None).
+
+    ``prev``, the overlay dict this one replaces (a reseed), lends its
+    buffers (:func:`merge_overlay_pack`): the upload goes into its spare
+    when the capacity matches, else the spare is dropped first, so no more
+    than two packs are alive at once; its served pack becomes the new
+    dict's spare when the capacity matches."""
     pack = np.asarray(pack, dtype=np.uint64)
     out = np.empty(pack.shape, dtype=np.int64)
     out[0] = bias_np(pack[0])
     out[1] = pack[1].view(np.int64)
     out[2] = pack[2] != 0
-    return {"ov_pack": torch.from_numpy(out).to(resolve(device))}
+    if fill is None:
+        fill = int(np.count_nonzero(pack[0] != UINT64_MAX))
+    dev = resolve(device)
+    host = torch.from_numpy(out)
+    spare = _take_spare(prev, host.shape[1], dev)
+    d = {"ov_pack": spare[0].copy_(host) if spare is not None
+         else host.to(dev), "ov_fill": int(fill)}
+    if prev is not None:
+        _keep_spare(d, prev)
+    return d
+
+
+def _fill(ovr: dict) -> int:
+    """The bound on ``ovr``'s live count past which its pack is padding
+    (the whole pack for a dict that records none)."""
+    return ovr.get("ov_fill", ovr["ov_pack"].shape[1])
+
+
+def _take_spare(ovr: dict | None, cap: int, dev) -> tuple | None:
+    """Pop ``ovr``'s spare, a (pack, fill bound) pair: returned when it is
+    a (3, ``cap``) pack on ``dev``, else dropped (so a new pack can take
+    its memory).  A spare is taken once: a second merge or reseed of the
+    same dict allocates."""
+    spare = ovr.pop("ov_spare", None) if ovr is not None else None
+    if spare is None or spare[0].shape[1] != cap or spare[0].device != dev:
+        return None
+    return spare
+
+
+def _keep_spare(d: dict, prev: dict) -> None:
+    """Keep ``prev``'s pack (the one ``d`` replaces) as ``d``'s spare when
+    it matches ``d``'s pack.  The spare rides the dict as a (pack, fill
+    bound) pair, which read paths and shape signatures do not see."""
+    pack, new = prev["ov_pack"], d["ov_pack"]
+    if pack is not new and pack.shape == new.shape \
+            and pack.device == new.device:
+        d["ov_spare"] = (pack, _fill(prev))
 
 
 # ---------------------------------------------------------------- point reads
@@ -125,7 +170,8 @@ def _scan_leaf_walk(leaf_keys, leaf_pay, leaf_count, leaf_next, leaf0, q,
                     count: int, max_blocks: int):
     """Gather ``max_blocks`` blocks along ``leaf_next`` from ``leaf0`` and
     compact the in-range entries (the reference's walk; the chain of rows
-    is walked first, then every block is gathered at once)."""
+    is walked first, then every block's keys are gathered at once, and the
+    payloads only of the ``count`` entries kept)."""
     L, cap = leaf_keys.shape
     Q = q.shape[0]
     chain = []
@@ -135,22 +181,34 @@ def _scan_leaf_walk(leaf_keys, leaf_pay, leaf_count, leaf_next, leaf0, q,
         leaf = torch.where(leaf >= 0, leaf_next[leaf.clamp(0, L - 1)], -1)
     chain = torch.stack(chain, 1)                       # (Q, B)
     rows = chain.clamp(0, L - 1)
-    ks = leaf_keys[rows]                                # (Q, B, cap)
-    ps = leaf_pay[rows]
-    cnt = leaf_count[rows]
-    valid = ((torch.arange(cap, device=q.device) < cnt[..., None])
-             & (ks >= q[:, None, None]) & (chain >= 0)[..., None])
-    return _scan_compact(ks.reshape(Q, -1), ps.reshape(Q, -1),
-                         valid.reshape(Q, -1), count)
+    valid = leaf_keys[rows] >= q[:, None, None]         # (Q, B, cap)
+    valid &= torch.arange(cap, device=q.device) < leaf_count[rows][..., None]
+    valid &= (chain >= 0)[..., None]
+    valid = valid.reshape(Q, -1)
+    order = _first_true(valid, count)
+    flat = rows.gather(1, order // cap).long() * cap + order % cap
+    return (leaf_keys.reshape(-1)[flat], leaf_pay.reshape(-1)[flat],
+            valid.gather(1, order))
 
 
-def _scan_compact(out_k, out_p, out_v, count: int):
-    """Valid entries first, in key order (a stable sort on the mask), then
-    sliced to ``count``."""
-    order = torch.argsort((~out_v).to(torch.uint8), dim=1,
-                          stable=True)[:, :count]
-    return (out_k.gather(1, order), out_p.gather(1, order),
-            out_v.gather(1, order))
+def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` columns of ``torch.argsort(~mask, dim=1,
+    stable=True)`` (a row's true columns in order, then its false ones),
+    from prefix counts instead of a sort: the p-th true column is where
+    the count of trues reaches p + 1, the p-th false one where the count
+    of falses does.  Returns (Q, min(k, N)) int64."""
+    Q, N = mask.shape
+    k = min(k, N)
+    dt = torch.int32 if N < 2**31 else torch.int64
+    col = torch.arange(1, N + 1, device=mask.device, dtype=dt)
+    t = mask.cumsum(1, dtype=dt)                  # trues in [0, c]
+    p = torch.arange(1, k + 1, device=mask.device,
+                     dtype=dt).expand(Q, k).contiguous()
+    first = torch.searchsorted(t, p)
+    nt = t[:, -1:].clone()
+    t.neg_().add_(col)                            # falses in [0, c]
+    rest = torch.searchsorted(t, p - nt)
+    return torch.where(p <= nt, first, rest)
 
 
 def scan_batch(arrs: dict, q: torch.Tensor, count: int = 100,
@@ -183,9 +241,11 @@ def scan_batch_overlay(arrs: dict, ovr: dict, q: torch.Tensor,
     if max_blocks is not None:
         leaf_cap = arrs["leaf_keys"].shape[1]
         max_blocks = max_blocks + hide // max(leaf_cap // 2, 1) + 1
-    ks, ps, vs = scan_batch(arrs, q, count=base, height=height,
-                            max_blocks=max_blocks)
-    return _overlay_scan_merge(ks, ps, vs, pack, q, count, hide)
+    # the candidates pass straight in, so the merge frees them once copied
+    return _overlay_scan_merge(*scan_batch(arrs, q, count=base,
+                                           height=height,
+                                           max_blocks=max_blocks),
+                               pack, q, count, hide)
 
 
 def _overlay_scan_merge(ks, ps, vs, pack, q, count: int, hide: int):
@@ -194,19 +254,33 @@ def _overlay_scan_merge(ks, ps, vs, pack, q, count: int, hide: int):
     slots are unioned: past the occupied prefix every slot is padding, and
     padding columns sort after at least ``count`` snapshot columns, so they
     never reach the output — the result is the reference's, which unions
-    the whole padded pack."""
-    keys, pays, tombs = pack[0], pack[1], pack[2] != 0
+    the whole padded pack.
+
+    The reference sorts every column of the union by (key, or ``BIASED_MAX``
+    when not valid; column).  Its first ``count`` lie among the first
+    ``count`` of each side in that order, and each side's are its columns
+    with a key below ``BIASED_MAX`` in column order, which are ascending
+    (the candidates arrive in key order, the pack is sorted), then the
+    others in column order.  So each side is cut to ``count`` columns by
+    prefix counts and only those 2 x ``count`` sort: the same result with
+    temporaries of a few bytes a column, which sit on top of the engine's
+    two overlay packs."""
+    keys = pack[0]
     cap = keys.shape[0]
     pos = torch.searchsorted(keys, ks.contiguous())
-    owned = (pos < cap) & (keys[pos.clamp(0, cap - 1)] == ks)
-    vs = vs & ~owned
-    Q = q.shape[0]
-    keys, pays, tombs = keys[:hide], pays[:hide], tombs[:hide]
+    vs = vs & ~((pos < cap) & (keys[pos.clamp(0, cap - 1)] == ks))
+    del pos
+    side = _first_true(vs & (ks != BIASED_MAX), count)
+    cand_k, cand_p, cand_v = ks.gather(1, side), ps.gather(1, side), \
+        vs.gather(1, side)
+    del ks, ps, vs
+    keys, pays, tombs = keys[:hide], pack[1, :hide], pack[2, :hide] != 0
     ov_v = (keys[None, :] != BIASED_MAX) & ~tombs[None, :] \
         & (keys[None, :] >= q[:, None])
-    comb_k = torch.cat([ks, keys[None, :].expand(Q, hide)], 1)
-    comb_p = torch.cat([ps, pays[None, :].expand(Q, hide)], 1)
-    comb_v = torch.cat([vs, ov_v], 1)
+    side = _first_true(ov_v, count)
+    comb_k = torch.cat([cand_k, keys[side]], 1)
+    comb_p = torch.cat([cand_p, pays[side]], 1)
+    comb_v = torch.cat([cand_v, ov_v.gather(1, side)], 1)
     sort_k = torch.where(comb_v, comb_k, BIASED_MAX)
     order = torch.argsort(sort_k, dim=1, stable=True)[:, :count]
     return (comb_k.gather(1, order), comb_p.gather(1, order),
@@ -214,20 +288,23 @@ def _overlay_scan_merge(ks, ps, vs, pack, q, count: int, hide: int):
 
 
 # -------------------------------------------------------------------- overlay
-def overlay_arrays(ov: DeltaOverlay, device=None) -> dict:
-    """Move the overlay to ``device`` as ONE packed (3, cap) transfer."""
+def overlay_arrays(ov: DeltaOverlay, device=None,
+                   prev: dict | None = None) -> dict:
+    """Move the overlay to ``device`` as ONE packed (3, cap) transfer (into
+    ``prev``'s spare when it fits: :func:`overlay_from_numpy`)."""
     a = ov.arrays()
     return overlay_from_numpy(
         np.stack([a["ov_keys"], a["ov_pay"], a["ov_tomb"].astype(np.uint64)]),
-        device)
+        device, fill=len(ov), prev=prev)
 
 
 def overlay_arrays_merged(frozen: DeltaOverlay | None, live: DeltaOverlay,
-                          device=None) -> dict:
+                          device=None, prev: dict | None = None) -> dict:
     """Packed device overlay of ``frozen`` updated by ``live`` — the view
     served while a compaction is in flight.  Capacity is bucketed at >= 2x
     the live overlay's floor (one stable shape across freeze and swap), and
-    ``n_live`` is the merged occupancy."""
+    ``n_live`` is the merged occupancy.  ``prev`` as for
+    :func:`overlay_from_numpy`."""
     keys, pays, tomb = merge_overlays(frozen, live)
     n = keys.shape[0]
     cap = next_pow2(max(n, 2 * live.min_capacity))
@@ -236,7 +313,7 @@ def overlay_arrays_merged(frozen: DeltaOverlay | None, live: DeltaOverlay,
     pack[0, :n] = keys
     pack[1, :n] = pays
     pack[2, :n] = tomb
-    out = overlay_from_numpy(pack, device)
+    out = overlay_from_numpy(pack, device, fill=n, prev=prev)
     out["n_live"] = int(n)
     return out
 
@@ -248,12 +325,26 @@ def empty_overlay_pack(cap: int, device=None) -> torch.Tensor:
     return pack
 
 
-def merge_overlay_pack(ovr: dict, batch, cap_out: int) -> tuple[dict, int]:
+def merge_overlay_pack(ovr: dict, batch, cap_out: int,
+                       live: int | None = None) -> tuple[dict, int]:
     """Absorb a drained host write batch (``DeltaOverlay.take_batch``) into
     the device-resident overlay pack: pad the sorted batch to a power-of-two
     bucket, ship only that (3, bcap) pack, merge on the device with
     ``overlay_merge`` (K2 on the card).  Returns (new overlay dict, bytes
-    uploaded)."""
+    uploaded).
+
+    The engines' two packs: the merge reads ``ovr["ov_pack"]`` and writes
+    into ``ovr``'s spare (``ov_spare``: the pack served before it), then
+    the two swap: the new dict serves the merged pack and keeps the pack
+    it read as its spare, the next merge's target.  So a dict passed here
+    stays valid until its successor is merged.  Every pack holds padding
+    from its fill on (``ov_fill``: an upper bound of its live count: the
+    fill before plus the batch, or ``live``, the caller's bound on the
+    merged entries, when lower, as when the batch overwrites entries), and
+    K2 pads only the target's slots past the merged count below that
+    bound: a steady-state merge writes the live entries only.  A dict with
+    no spare of ``cap_out`` slots (the first merge, or a capacity growth)
+    drops it and merges into a fresh target, padded whole."""
     bk, bp, bt = batch
     n = int(bk.shape[0])
     bcap = next_pow2(max(n, 8))
@@ -262,11 +353,17 @@ def merge_overlay_pack(ovr: dict, batch, cap_out: int) -> tuple[dict, int]:
     bpack[0, :n] = bk
     bpack[1, :n] = bp
     bpack[2, :n] = bt
-    pack = ovr["ov_pack"]
-    merged = overlay_merge(pack,
-                           overlay_from_numpy(bpack, pack.device)["ov_pack"],
-                           cap_out)
-    return {"ov_pack": merged}, int(bpack.nbytes)
+    pack, fill = ovr["ov_pack"], _fill(ovr)
+    target, target_fill = _take_spare(ovr, cap_out, pack.device) or (
+        torch.empty((3, cap_out), dtype=torch.int64, device=pack.device),
+        cap_out)
+    overlay_merge(pack, overlay_from_numpy(bpack, pack.device,
+                                           fill=n)["ov_pack"],
+                  cap_out, out=target, fill=fill, out_fill=target_fill)
+    bound = min(cap_out, fill + n, cap_out if live is None else int(live))
+    new = {"ov_pack": target, "ov_fill": bound}
+    _keep_spare(new, ovr)
+    return new, int(bpack.nbytes)
 
 
 def update_leaf_rows(arrs: dict, di: DeviceIndex) -> dict:
@@ -405,6 +502,7 @@ def scan_batch_sharded_overlay(stk: dict, ovr: dict, q: torch.Tensor,
     if max_blocks is not None:
         leaf_cap = stk["leaf_keys"].shape[2]
         max_blocks = max_blocks + hide // max(leaf_cap // 2, 1) + 1
-    ks, ps, vs = scan_batch_sharded(stk, q, count=base, height=height,
-                                    max_blocks=max_blocks)
-    return _overlay_scan_merge(ks, ps, vs, pack, q, count, hide)
+    return _overlay_scan_merge(*scan_batch_sharded(stk, q, count=base,
+                                                   height=height,
+                                                   max_blocks=max_blocks),
+                               pack, q, count, hide)

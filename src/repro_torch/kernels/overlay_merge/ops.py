@@ -13,8 +13,18 @@ output row is bit-identical to the reference's ``merge_overlay_pack_jnp``:
 the sorted union, the batch winning key collisions, tombstones kept as
 entries, padding after the last live entry.
 
-Dispatch is by device: CPU tensors run :func:`merge_overlay_pack_torch`,
-CUDA tensors launch the kernel or raise.
+Both forms write either a fresh, fully padded pack or, given ``out``, into
+a target the caller owns (the engines' two packs, ``core.lookup.
+merge_overlay_pack``): a target holds padding in every slot from its fill
+(the live count it last held, or an upper bound of it: ``out_fill``) to
+its capacity, and the merge writes the merged entries into [0, n_out) and
+padding into [n_out, out_fill) only, so that a steady-state merge moves
+the live entries and not the padding.  ``fill`` bounds the pack's own
+live count and sizes the grids.
+
+Dispatch is by device: CPU tensors run the plain versions
+(:func:`merge_overlay_pack_torch`, or :func:`merge_overlay_into_torch` with
+``out``), CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -24,6 +34,9 @@ import torch
 
 from ...core.keys import BIASED_MAX
 from .. import _build
+
+# the kernel scans a batch's overwrite flags in one block's shared memory
+MAX_BATCH = 1 << 19
 
 
 def merge_overlay_pack_torch(pack: torch.Tensor, batch: torch.Tensor,
@@ -55,6 +68,33 @@ def merge_overlay_pack_torch(pack: torch.Tensor, batch: torch.Tensor,
     return out
 
 
+def _live(pack: torch.Tensor) -> int:
+    return int((pack[0] != BIASED_MAX).sum())
+
+
+def merge_overlay_into_torch(pack: torch.Tensor, batch: torch.Tensor,
+                             cap_out: int, out: torch.Tensor,
+                             out_fill: int | None = None,
+                             fill: int | None = None) -> torch.Tensor:
+    """Plain version of K2's merge into a target, with the kernel's write
+    set: the merged entries of :func:`merge_overlay_pack_torch` into [0,
+    n_out) of ``out`` (3, cap_out), padding into [n_out, out_fill) (default
+    ``cap_out``: a fresh target), nothing past ``max(n_out, out_fill)``.
+    ``fill``, when given, must bound the pack's live count, as the kernel
+    requires.  Returns n_out, the target's new fill (an int32 scalar
+    tensor)."""
+    if out.shape != (3, cap_out):
+        raise ValueError(f"out must be (3, {cap_out}), not {tuple(out.shape)}")
+    if fill is not None and _live(pack) > fill:
+        raise ValueError(f"fill {fill} is below the pack's live count "
+                         f"{_live(pack)}")
+    merged = merge_overlay_pack_torch(pack, batch, cap_out)
+    n = _live(merged)
+    hi = max(n, min(cap_out if out_fill is None else int(out_fill), cap_out))
+    out[:, :hi] = merged[:, :hi]
+    return torch.tensor(n, dtype=torch.int32, device=pack.device)
+
+
 def merge_overlay_stacked_torch(packs: torch.Tensor, batches: torch.Tensor,
                                 cap_out: int) -> torch.Tensor:
     """Plain version of K2's stacked form: :func:`merge_overlay_pack_torch`
@@ -63,11 +103,40 @@ def merge_overlay_stacked_torch(packs: torch.Tensor, batches: torch.Tensor,
                         for a, b in zip(packs, batches)])
 
 
+def _per_row(v, rows: int, default: int) -> list[int]:
+    """An int or one int a row, as a list of ``rows`` ints."""
+    if v is None:
+        return [default] * rows
+    if isinstance(v, (list, tuple)):
+        if len(v) != rows:
+            raise ValueError(f"{len(v)} fills for {rows} rows")
+        return [int(x) for x in v]
+    return [int(v)] * rows
+
+
+def merge_overlay_stacked_into_torch(packs: torch.Tensor,
+                                     batches: torch.Tensor, cap_out: int,
+                                     out: torch.Tensor, out_fill=None,
+                                     fill=None) -> torch.Tensor:
+    """Plain version of K2's stacked merge into a target:
+    :func:`merge_overlay_into_torch` on each row of ``out`` (S, 3,
+    cap_out), ``out_fill`` and ``fill`` an int or one a row.  Returns the
+    rows' new fills (int32, (S,))."""
+    S = packs.shape[0]
+    return torch.stack([
+        merge_overlay_into_torch(a, b, cap_out, o, f, fa) for a, b, o, f, fa
+        in zip(packs, batches, out, _per_row(out_fill, S, cap_out),
+               _per_row(fill, S, packs.shape[2]))])
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.overlay_merge_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int,      # packs, Ca
+                   ctypes.c_int,                       # fill bound of packs
                    ctypes.c_void_p, ctypes.c_int,      # batches, Cb
                    ctypes.c_void_p, ctypes.c_int,      # out, cap_out
+                   ctypes.c_void_p, ctypes.c_int,      # out fills, or one
+                   ctypes.c_int,                       # their bound
                    ctypes.c_void_p, ctypes.c_int,      # int32 scratch, rows
                    ctypes.c_void_p]                    # stream
     fn.restype = ctypes.c_int
@@ -81,12 +150,20 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def _launch(packs: torch.Tensor, batches: torch.Tensor,
-            cap_out: int) -> torch.Tensor:
-    """One launch of ``csrc/overlay_merge.cu`` over (S, 3, Ca) packs and
-    (S, 3, Cb) batches: a rank block and a scatter grid row per shard."""
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _launch(packs: torch.Tensor, batches: torch.Tensor, cap_out: int,
+            out: torch.Tensor, fill, out_fill) -> torch.Tensor:
+    """One call of ``csrc/overlay_merge.cu`` (a rank launch and a scatter
+    launch) over (S, 3, Ca) packs and (S, 3, Cb) batches into ``out`` (S,
+    3, cap_out): ``fill`` bounds each pack row's live count (default Ca),
+    ``out_fill`` each target row's fill (default cap_out: padded whole).
+    Returns the rows' new fills, int32 (S,), on the card."""
     dev = packs.device
-    for t, name in ((packs, "packs"), (batches, "batches")):
+    for t, name in ((packs, "packs"), (batches, "batches"), (out, "out")):
         if t.device != dev or t.dtype != torch.int64 or t.dim() != 3 \
                 or t.shape[0] != packs.shape[0] or t.shape[1] != 3 \
                 or t.shape[2] < 1 or not t.is_contiguous():
@@ -94,50 +171,94 @@ def _launch(packs: torch.Tensor, batches: torch.Tensor,
                              f"int64 tensor on {dev}")
     S, _, ca = packs.shape
     cb = batches.shape[2]
-    if cap_out < 1 or S < 1:
-        raise ValueError("cap_out and the shard count must be >= 1")
+    if out.shape[2] != cap_out or S < 1:
+        raise ValueError(f"out must be (S>=1, 3, {cap_out})")
+    if max(ca, cap_out) >= 2**31 - 1 or cb > MAX_BATCH:
+        raise ValueError(f"K2 takes packs below 2^31 - 1 slots and batches "
+                         f"of at most {MAX_BATCH} (Ca={ca}, Cb={cb}, "
+                         f"cap_out={cap_out})")
+    o0, o1 = _span(out)
+    for t in (packs, batches):
+        t0, t1 = _span(t)
+        if t0 < o1 and o0 < t1:
+            raise ValueError("out must not overlap the pack or the batch")
+    fa = max(_per_row(fill, S, ca))
+    if not 0 <= fa <= ca:
+        raise ValueError(f"fill must lie in [0, {ca}], not {fa}")
+    fills = [min(max(f, 0), cap_out) for f in _per_row(out_fill, S, cap_out)]
     lib = _build.load("overlay_merge", _bind)
-    out = torch.empty((S, 3, cap_out), dtype=torch.int64, device=dev)
-    # a row's posa (Cb) | exclusive scan C (Cb + 1) | n_out, live pack count
-    scratch = torch.empty(S * (2 * cb + 3), dtype=torch.int32, device=dev)
+    per_row = None
+    if len(set(fills)) > 1:
+        per_row = torch.tensor(fills, dtype=torch.int32).to(dev)
+    # a row's posa (Cb) | flags (Cb) | n_live_a | n_out
+    scratch = torch.empty((S, 2 * cb + 2), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.overlay_merge_launch(packs.data_ptr(), ca, batches.data_ptr(),
-                                   cb, out.data_ptr(), cap_out,
-                                   scratch.data_ptr(), S, stream)
+    err = lib.overlay_merge_launch(
+        packs.data_ptr(), ca, fa, batches.data_ptr(), cb, out.data_ptr(),
+        cap_out, per_row.data_ptr() if per_row is not None else None,
+        fills[0], max(fills), scratch.data_ptr(), S, stream)
     _build.check(err, "overlay_merge")
-    return out
+    return scratch[:, 2 * cb + 1]
 
 
-def overlay_merge(pack: torch.Tensor, batch: torch.Tensor,
-                  cap_out: int) -> torch.Tensor:
+def overlay_merge(pack: torch.Tensor, batch: torch.Tensor, cap_out: int,
+                  out: torch.Tensor | None = None, fill: int | None = None,
+                  out_fill: int | None = None):
     """Merge the sorted (3, Cb) write ``batch`` into the sorted (3, Ca)
-    overlay ``pack``; returns a new (3, cap_out) pack.  ``cap_out`` must
-    cover the merged live count (entries past it are dropped, as in the
-    reference).  CPU tensors run the plain version; CUDA tensors launch K2
-    (counted in ``overlay_merge.launches``)."""
+    overlay ``pack``.  ``cap_out`` must cover the merged live count
+    (entries past it are dropped, as in the reference).
+
+    Without ``out``: returns a new, fully padded (3, cap_out) pack.  With
+    ``out``, a (3, cap_out) target holding padding from ``out_fill``
+    (default ``cap_out``) on, neither overlapping the inputs: the merge is
+    written into it (its [0, n_out), and padding into [n_out, out_fill)),
+    and the call returns n_out, its new fill (an int32 scalar tensor), as
+    :func:`merge_overlay_into_torch` does.  ``fill`` (default Ca) must
+    bound the pack's live count.  CPU tensors run the plain versions; CUDA
+    tensors launch K2 (counted in ``overlay_merge.launches``)."""
     if not _on_card(pack, "overlay_merge"):
-        return merge_overlay_pack_torch(pack, batch, cap_out)
-    for t, name in ((pack, "pack"), (batch, "batch")):
-        if t.dim() != 2:
+        if out is None:
+            return merge_overlay_pack_torch(pack, batch, cap_out)
+        return merge_overlay_into_torch(pack, batch, cap_out, out, out_fill,
+                                        fill)
+    for t, name in ((pack, "pack"), (batch, "batch"), (out, "out")):
+        if t is not None and t.dim() != 2:
             raise ValueError(f"{name} must be a (3, C) int64 tensor")
-    out = _launch(pack[None], batch[None], int(cap_out))[0]
+    cap_out = int(cap_out)
+    target = out if out is not None else torch.empty(
+        (3, cap_out), dtype=torch.int64, device=pack.device)
+    fills = _launch(pack[None], batch[None], cap_out, target[None], fill,
+                    out_fill if out is not None else cap_out)
     overlay_merge.launches += 1
-    return out
+    return target if out is None else fills[0]
 
 
 def overlay_merge_stacked(packs: torch.Tensor, batches: torch.Tensor,
-                          cap_out: int) -> torch.Tensor:
+                          cap_out: int, out: torch.Tensor | None = None,
+                          fill=None, out_fill=None):
     """Merge each shard row's sorted (3, Cb) batch of ``batches`` (S, 3,
-    Cb) into its sorted (3, Ca) pack of ``packs`` (S, 3, Ca); returns new
-    (S, 3, cap_out) packs, each row merged on its own.  ``cap_out`` must
-    cover every row's merged live count.  CPU tensors run the plain
-    version; CUDA tensors launch K2 over all rows at once (counted in
+    Cb) into its sorted (3, Ca) pack of ``packs`` (S, 3, Ca), each row on
+    its own.  ``cap_out`` must cover every row's merged live count.
+    Without ``out``: returns new, fully padded (S, 3, cap_out) packs.  With
+    ``out`` (S, 3, cap_out), whose rows hold padding from ``out_fill`` (an
+    int or one a row; default ``cap_out``) on: the merge is written into
+    it, and the call returns the rows' new fills (int32, (S,)), as
+    :func:`merge_overlay_stacked_into_torch` does.  ``fill`` (an int or one
+    a row, default Ca) bounds the rows' live counts.  CPU tensors run the
+    plain versions; CUDA tensors launch K2 over all rows at once (counted in
     ``overlay_merge_stacked.launches``)."""
     if not _on_card(packs, "overlay_merge_stacked"):
-        return merge_overlay_stacked_torch(packs, batches, cap_out)
-    out = _launch(packs, batches, int(cap_out))
+        if out is None:
+            return merge_overlay_stacked_torch(packs, batches, cap_out)
+        return merge_overlay_stacked_into_torch(packs, batches, cap_out, out,
+                                                out_fill, fill)
+    cap_out = int(cap_out)
+    target = out if out is not None else torch.empty(
+        (packs.shape[0], 3, cap_out), dtype=torch.int64, device=packs.device)
+    fills = _launch(packs, batches, cap_out, target, fill,
+                    out_fill if out is not None else cap_out)
     overlay_merge_stacked.launches += 1
-    return out
+    return target if out is None else fills
 
 
 overlay_merge.launches = 0

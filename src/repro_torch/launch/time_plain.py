@@ -1,6 +1,7 @@
-"""Time K1 (and with ``--staged`` K3, K4 and K5) from several source trees
-of the port, interleaved in one process on one card, so that two versions
-are compared on one host: each tree's kernel over a sweep of batch sizes,
+"""Time K1 (with ``--staged`` K3, K4 and K5, with ``--merge`` K2) from
+several source trees of the port, interleaved in one process on one card,
+so that two versions are compared on one host: each tree's kernel over a
+sweep of batch sizes,
 and K1's plain version (``lookup_plain``, the read of every
 ``device="cpu"`` engine):
 
@@ -52,7 +53,19 @@ row a measurement, in two rounds (the second in reverse tree order):
   the running package's plan gives, the trips a query and the sectors
   read at each lanes (``k4_walk``);
   and a ``floor`` row a round, a one-element fill timed the same way: the
-  launch and the events alone, no dependent load.
+  launch and the events alone, no dependent load;
+- ``merge`` (with ``--merge``): each tree's K2 ``overlay_merge`` on a
+  2^24-slot pack holding ``MERGE_FILLS`` live entries, at each of
+  ``MERGE_BATCHES`` batch sizes (a quarter of the batch overwrites), in
+  the tree's own steady-state form: a tree whose ops have
+  ``merge_overlay_into_torch`` merges into a target holding the pack
+  (padding past the fill, as the engines' spare holds), an older one
+  writes a fresh pack; and the running tree's merge into a fresh target.
+  Device times as for ``kernel``, every output held to the first tree's
+  plain version, beside the live-entry bound (the live entries in, the
+  merged ones out, 24 bytes each) and the full rewrite's; a
+  ``merge_split`` row of the running tree's steady merge by kernel (rank
+  and scatter, ``torch.profiler``); a ``floor`` row a round.
 
 On the CPU (``--device cpu``) only the ``plain`` rows are printed.
 """
@@ -80,11 +93,15 @@ OV_CAP, OV_LIVE = 1 << 24, 28_160   # the served overlay pack (PERF.md §6)
 LM_SLOTS, LM_PAGES = 8, 32  # the LM engine's slots and pages a sequence
 K4_POOL_ROWS = 1 << 15      # rows of each K4 width-class pool
 K4_FORCED = (1, 2, 4, 8, 16)        # K4's lanes a query, each timed
+MERGE_CAP = 1 << 24                 # the served overlay pack's slots
+MERGE_FILLS = (OV_LIVE, 1 << 16, 1 << 20, 1 << 22, 1 << 23)
+MERGE_BATCHES = (64, 512, 4096)
 
 
 def _load_tree(name: str, src: str) -> types.SimpleNamespace:
     """``SRC/repro_torch`` as the package ``name``: its kernels' ops
-    modules, K1 (``k1``), K3 (``k3``), K4 (``k4``) and K5 (``k5``)."""
+    modules, K1 (``k1``), K2 (``k2``), K3 (``k3``), K4 (``k4``) and K5
+    (``k5``)."""
     init = pathlib.Path(src).resolve() / "repro_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
         name, init, submodule_search_locations=[str(init.parent)])
@@ -94,7 +111,8 @@ def _load_tree(name: str, src: str) -> types.SimpleNamespace:
     ops = name + ".kernels.{}.ops"
     return types.SimpleNamespace(**{
         k: importlib.import_module(ops.format(m)) for k, m in
-        (("k1", "fused_lookup"), ("k3", "overlay_probe"),
+        (("k1", "fused_lookup"), ("k2", "overlay_merge"),
+         ("k3", "overlay_probe"),
          ("k4", "leaf_search"), ("k5", "inner_probe"))})
 
 
@@ -410,6 +428,109 @@ def _staged_sweep(trees: dict, arrs: dict, ovr: dict, qs: dict,
         _k4_sweep(trees, k4_in[Q], flush, r, reps)
 
 
+def _merge_case(fill: int, cb: int, dev, gen) -> tuple:
+    """A (3, MERGE_CAP) pack of ``fill`` random live entries (10%
+    tombstones) and a (3, cb) batch of 7/8 live entries, a quarter of them
+    keys of the pack, built on the card."""
+    from ..core.keys import BIASED_MAX
+    nb = cb - cb // 8
+    over = nb // 4
+    pool = torch.unique(torch.randint(-2**62, 2**62, (fill + nb + 4096,),
+                                      device=dev, generator=gen))
+    pool = pool[torch.randperm(pool.numel(), device=dev, generator=gen)]
+    pk = pool[:fill].sort().values
+    bk = torch.cat([pk[torch.randperm(fill, device=dev, generator=gen)[:over]],
+                    pool[fill:fill + nb - over]]).sort().values
+
+    def pack(keys, cap):
+        n = keys.numel()
+        p = torch.zeros((3, cap), dtype=torch.int64, device=dev)
+        p[0] = BIASED_MAX
+        p[0, :n] = keys
+        p[1, :n] = torch.randint(0, 2**62, (n,), device=dev, generator=gen)
+        p[2, :n] = torch.rand(n, device=dev, generator=gen) < 0.1
+        return p
+    return pack(pk, MERGE_CAP), pack(bk, cb)
+
+
+def _kernel_split(fn, reps: int, flush) -> dict:
+    """Device ms a call of ``fn`` spends in each of the running tree's K2
+    kernels (``torch.profiler``, ``reps`` calls, L2 flushed before each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for k in ("rank_kernel", "scatter_kernel"):
+            if e.device_type == DeviceType.CUDA and k in e.key:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                out[k + "_ms"] = us / 1e3 / reps
+    return out
+
+
+def _merge_sweep(trees: dict, flush, r: int, reps: int) -> None:
+    """One round of ``merge`` rows: every tree's K2 at each fill and batch
+    size in its steady-state form (into a target that holds the pack when
+    its ops merge into targets, else a fresh pack), and the running
+    tree's merge into a fresh target, held to the first tree's plain
+    version."""
+    from ..core.keys import BIASED_MAX
+    from ..kernels.overlay_merge import ops as own
+    first = next(iter(trees.values()))
+    order = list(trees) if r % 2 == 0 else list(trees)[::-1]
+    dev = flush.device
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    print(json.dumps({"row": "floor", "round": r, "device_ms": _device_ms(
+        one.zero_, reps, KERNEL_HOLD_CYCLES, flush)}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for fill in MERGE_FILLS:
+        for cb in MERGE_BATCHES:
+            pack, batch = _merge_case(fill, cb, dev, gen)
+            exp = first.k2.merge_overlay_pack_torch(pack, batch, MERGE_CAP)
+            nb = int((batch[0] != BIASED_MAX).sum())
+            merged = int((exp[0] != BIASED_MAX).sum())
+            live_ms = 24 * (fill + nb + merged) / HBM_BYTES_PER_S * 1e3
+            rewrite_ms = 24 * (fill + nb + MERGE_CAP) / HBM_BYTES_PER_S * 1e3
+            tgt = pack.clone()
+            runs = []
+            for name in order:
+                k2 = trees[name].k2
+                if hasattr(k2, "merge_overlay_into_torch"):
+                    runs.append((name, "steady", lambda k2=k2: k2.overlay_merge(
+                        pack, batch, MERGE_CAP, out=tgt, fill=fill,
+                        out_fill=fill), tgt))
+                else:
+                    runs.append((name, "fresh", lambda k2=k2: k2.overlay_merge(
+                        pack, batch, MERGE_CAP), None))
+            runs.append(("own", "fresh", lambda: own.overlay_merge(
+                pack, batch, MERGE_CAP, fill=fill), None))
+            for name, form, call, into in runs:
+                got = call()
+                _agree({name: (into if into is not None else got,)},
+                       (exp,), f"overlay_merge fill={fill} Cb={cb} {form}")
+                del got
+            for name, form, call, _ in runs:
+                ms = _device_ms(call, reps, KERNEL_HOLD_CYCLES, flush)
+                print(json.dumps({
+                    "row": "merge", "round": r, "tree": name, "form": form,
+                    "fill": fill, "Cb": cb, "batch_live": nb,
+                    "merged": merged, "device_ms": ms, "bound_ms": live_ms,
+                    "rewrite_bound_ms": rewrite_ms}), flush=True)
+            print(json.dumps({
+                "row": "merge_split", "round": r, "fill": fill, "Cb": cb,
+                **_kernel_split(lambda: own.overlay_merge(
+                    pack, batch, MERGE_CAP, out=tgt, fill=fill,
+                    out_fill=fill), reps, flush)}), flush=True)
+            del pack, batch, exp, tgt
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=20_000_000)
@@ -424,9 +545,12 @@ def main(argv=None) -> int:
     ap.add_argument("--staged", action="store_true",
                     help="also time K5, K3 and K4 at each batch size on "
                          "the staged read's inputs")
+    ap.add_argument("--merge", action="store_true",
+                    help="also time K2 at each of MERGE_FILLS live entries "
+                         "in a 2^24-slot pack and MERGE_BATCHES batch sizes")
     ap.add_argument("--tree", action="append", required=True,
-                    help="NAME=SRC: time SRC/repro_torch's K1 (and with "
-                         "--staged its K3, K4 and K5)")
+                    help="NAME=SRC: time SRC/repro_torch's K1 (with "
+                         "--staged its K3, K4 and K5, with --merge its K2)")
     args = ap.parse_args(argv)
 
     from ..core import Aulid, BlockDevice, partition_bulkload
@@ -505,6 +629,9 @@ def main(argv=None) -> int:
         for r in range(ROUNDS):
             _staged_sweep(trees, arrs, cases["overlay"], qs, k5_in, k4_in,
                           flush, r, args.reps)
+    if args.merge:
+        for r in range(ROUNDS):
+            _merge_sweep(trees, flush, r, args.reps)
     if args.shards:
         del arrs, di, idx
         torch.cuda.empty_cache()

@@ -273,7 +273,11 @@ class IndexShard:
         Reseed path (ownership handoff back to the host dicts): any uid
         change — freeze, finish_swap, abort_swap, or a clear() (which takes
         a fresh uid) — rebuilds the pack from the host state, and
-        ``mark_synced`` discards the now-moot pending deltas."""
+        ``mark_synced`` discards the now-moot pending deltas.
+
+        Both paths keep the two device packs of ``merge_overlay_pack``
+        (served and spare): a merge writes into the spare, a reseed uploads
+        into it."""
         t0 = time.perf_counter()
         struct = (self.overlay.uid,
                   self.frozen_overlay.uid if self.frozen_overlay else 0)
@@ -281,10 +285,11 @@ class IndexShard:
                 and struct == self.ov_struct):
             batch = self.overlay.take_batch()
             if batch[0].size:
+                live = self.overlay_live()
                 cap_out = max(int(self.ov_arrs["ov_pack"].shape[1]),
-                              next_pow2(self.overlay_live()))
+                              next_pow2(live))
                 self.ov_arrs, nbytes = merge_overlay_pack(
-                    self.ov_arrs, batch, cap_out)
+                    self.ov_arrs, batch, cap_out, live)
                 self.write_h2d_bytes += nbytes
                 self.overlay_merges += 1
             self.write_host_s += time.perf_counter() - t0
@@ -292,10 +297,12 @@ class IndexShard:
         self.overlay.mark_synced()
         if self.frozen_overlay is not None:
             self.frozen_overlay.mark_synced()
-            self.ov_arrs = overlay_arrays_merged(self.frozen_overlay,
-                                                 self.overlay, self.device)
+            self.ov_arrs = overlay_arrays_merged(
+                self.frozen_overlay, self.overlay, self.device,
+                prev=self.ov_arrs)
         else:
-            self.ov_arrs = overlay_arrays(self.overlay, self.device)
+            self.ov_arrs = overlay_arrays(self.overlay, self.device,
+                                          prev=self.ov_arrs)
         self.ov_struct = struct
         self.overlay_reseeds += 1
         self.write_h2d_bytes += int(self.ov_arrs["ov_pack"].nbytes)

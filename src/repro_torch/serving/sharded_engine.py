@@ -573,7 +573,8 @@ class ShardedIndexEngine(BaseIndexEngine):
         absorbs the shards' drained pending batches as ONE device merge (K2)
         of O(batch) uploaded bytes instead of this full O(total) rebuild.
         Any uid change (freeze, swap, clear, repartition) falls through to
-        the rebuild, which re-seeds the pack from host state and marks every
+        the rebuild, which re-seeds the pack from host state (uploaded into
+        the spare of ``merge_overlay_pack``'s two packs) and marks every
         overlay synced."""
         sig = self._overlay_sig()
         if sig == self._pack_sig and self.ov_arrs is not None:
@@ -619,7 +620,8 @@ class ShardedIndexEngine(BaseIndexEngine):
         self._pack_struct = struct
         self.overlay_reseeds += 1
         self.write_h2d_bytes += int(pack.nbytes)
-        ovr = overlay_from_numpy(pack, self.device)
+        ovr = overlay_from_numpy(pack, self.device, fill=total,
+                                 prev=self.ov_arrs)
         self.write_host_s += time.perf_counter() - t0
         return ovr
 
@@ -640,7 +642,8 @@ class ShardedIndexEngine(BaseIndexEngine):
         bound = sum(sh.overlay_live() for sh in self.shards)
         cap_out = max(int(self.ov_arrs["ov_pack"].shape[1]),
                       self._ov_floor, next_pow2(bound))
-        ovr, nbytes = merge_overlay_pack(self.ov_arrs, (bk, bp, bt), cap_out)
+        ovr, nbytes = merge_overlay_pack(self.ov_arrs, (bk, bp, bt), cap_out,
+                                         bound)
         self._pack_sig = sig
         self._pack_live = bound
         self.write_h2d_bytes += nbytes

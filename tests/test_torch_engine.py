@@ -6,7 +6,9 @@ of present/absent/just-written keys, scans of mixed lengths): the port on
 the CPU (its kernels' plain versions), the reference on its jnp path.
 Every result must be equal, across synchronous compaction, background
 compaction pumped by hand (the in-flight window spans whole steps), and the
-overlay merge on and off; so must the write-path counters of ``stats()``.
+overlay merge on and off; so must the write-path counters of ``stats()``,
+and the served overlay pack after every step (the port's two packs keeping
+padding past their fills: ``test_torch_overlay_merge.check_served``).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import pytest
 pytest.importorskip("jax")   # the reference; absent where only the port runs
 
 from test_async_compaction import ManualExecutor
+from test_torch_overlay_merge import check_served
 
 from repro.core import Aulid as RefAulid, AulidConfig as RefConfig
 from repro.core import BlockDevice as RefBlockDevice
@@ -81,6 +84,18 @@ def _drive(eng, trace):
     return out
 
 
+def _lockstep(ref, port, trace):
+    """Drive both engines step by step: equal results, and the port's
+    served pack == the reference's after every step."""
+    out = []
+    for step in trace:
+        a, b = _drive(ref, [step]), _drive(port, [step])
+        assert a == b
+        check_served(ref.ov_arrs, port.ov_arrs)
+        out += b
+    return out
+
+
 def _same_stats(ref, port):
     a, b = ref.stats(), port.stats()
     assert {k: a[k] for k in STAT_KEYS} == {k: b[k] for k in STAT_KEYS}
@@ -91,7 +106,7 @@ def _same_stats(ref, port):
 def test_sync_compaction_stream(overlay_merge):
     keys, ref, port = _pair(gamma=0.02, overlay_merge=overlay_merge)
     trace = _trace(keys, seed=3, steps=4)
-    assert _drive(ref, trace) == _drive(port, trace)
+    _lockstep(ref, port, trace)
     _same_stats(ref, port)
     st = port.stats()
     assert st["compactions"] >= 2 and st["read_backend"] == "torch"
@@ -103,7 +118,7 @@ def test_no_compaction_long_overlay():
     device merge path, scans merge a filling overlay."""
     keys, ref, port = _pair(gamma=0.5)
     trace = _trace(keys, seed=8, steps=4, writes=40)
-    assert _drive(ref, trace) == _drive(port, trace)
+    _lockstep(ref, port, trace)
     _same_stats(ref, port)
     assert port.stats()["compactions"] == 0
 
@@ -118,16 +133,17 @@ def test_async_compaction_hand_pumped(monkeypatch, overlay_merge):
                             overlay_merge=overlay_merge)
     trace = _trace(keys, seed=5, steps=5)
     # storm (freezes), in-flight steps, then the swap and steps after it
-    assert _drive(ref, trace[:3]) == _drive(port, trace[:3])
+    _lockstep(ref, port, trace[:3])
     assert port.stats()["inflight"] == ref.stats()["inflight"] == 1
     assert port.shard.frozen_overlay is not None and port.shard.pending
     _same_stats(ref, port)
     assert pools[0].pump() == pools[1].pump() == 1
-    assert _drive(ref, trace[3:]) == _drive(port, trace[3:])
+    _lockstep(ref, port, trace[3:])
     for p in pools:
         p.pump()
     ref.drain_compactions()
     port.drain_compactions()
+    check_served(ref.ov_arrs, port.ov_arrs)
     _same_stats(ref, port)
     assert port.stats()["swaps"] >= 1
 
@@ -143,13 +159,29 @@ def test_failed_build_keeps_writes(monkeypatch):
         raise RuntimeError("injected build failure")
     ref._build_job = boom
     port._build_job = boom
-    assert _drive(ref, trace[:2]) == _drive(port, trace[:2])
+    _lockstep(ref, port, trace[:2])
     del ref._build_job, port._build_job
     for p in pools:
         p.pump()
-    assert _drive(ref, trace[2:]) == _drive(port, trace[2:])
+    _lockstep(ref, port, trace[2:])
     _same_stats(ref, port)
     assert port.stats()["failed_swaps"] == 1
+
+
+def test_hot_key_updates_keep_the_fill_bound_at_the_live_count():
+    """The same keys updated step after step: every merge overwrites, so
+    the served pack's fill bound stays the overlay's entry count (the
+    engine's bound, not the fill before plus the batch) and K2's padding
+    range stays empty; the served pack equals the reference's."""
+    keys, ref, port = _pair(gamma=0.5, overlay_merge=True)
+    hot = [int(k) for k in keys[::37][:40]]
+    trace = [[("insert", k, s * 1000 + i) for i, k in enumerate(hot)]
+             + [("get", hot[s]), ("scan", hot[0], 0, 7)] for s in range(12)]
+    _lockstep(ref, port, trace)
+    st = port.stats()
+    assert st["overlay_merges"] >= 10 and st["compactions"] == 0
+    assert port.ov_arrs["ov_fill"] == len(port.overlay) == len(hot)
+    assert port.ov_arrs["ov_spare"][1] == len(hot)
 
 
 # The falsifying draw of the reference's tests/test_overlay_merge.py::

@@ -16,7 +16,8 @@ import torch
 from repro_torch.core import Aulid, AulidConfig, BlockDevice, DeltaOverlay
 from repro_torch.core import lookup as port
 from repro_torch.core.device_index import build_device_index
-from repro_torch.core.keys import key_f64, keys_from_tensor, keys_to_tensor
+from repro_torch.core.keys import (BIASED_MAX, key_f64, keys_from_tensor,
+                                   keys_to_tensor)
 from repro_torch.core.workloads import make_dataset, payloads_for
 from repro_torch.kernels.fused_lookup import ops as k1
 from repro_torch.kernels.inner_probe import ops as k5
@@ -243,6 +244,16 @@ def _merge_cases():
         _pack(rng, pool[2000:5000], 4096), 8192
     yield "big-pack", _pack(rng, pool[:30_000], 1 << 20), \
         _pack(rng, pool[29_800:30_312], 512), 1 << 20
+    # one thread owns the whole batch; a batch searched in global memory;
+    # one whose flag scan takes more than 48 KB of shared memory
+    yield "empty-pack-big-batch", _pack(rng, [], 64), \
+        _pack(rng, pool[:4000], 4096), 4096
+    yield "global-batch", _pack(rng, pool[:9000], 16384), \
+        _pack(rng, pool[8000:16000], 8192), 32768
+    big = np.random.default_rng(1).choice(2**60, size=210_000,
+                                          replace=False).astype(np.uint64)
+    yield "scan-past-48k", _pack(rng, big[:1000], 1 << 18), \
+        _pack(rng, big[500:200_500], 1 << 18), 1 << 18
 
 
 MERGE_CASES = list(_merge_cases())
@@ -259,6 +270,124 @@ def test_overlay_merge_kernel_matches_plain(cuda, name, a, b, cap_out):
     exp = k2.merge_overlay_pack_torch(pa, pb, cap_out)
     torch.cuda.synchronize()
     assert torch.equal(got, exp)
+
+
+SENTINEL = 12345
+
+
+def _target(rng, cap, fill, dev):
+    """A target that holds garbage in [0, fill) and, past it, a sentinel
+    that is not padding: whatever the kernel writes past max(n_out, fill)
+    shows."""
+    t = torch.full((3, cap), SENTINEL, dtype=torch.int64)
+    f = min(fill, cap)
+    t[:, :f] = torch.from_numpy(rng.integers(-9, 9, (3, f)))
+    return t.to(dev)
+
+
+@pytest.mark.parametrize("name,a,b,cap_out", MERGE_CASES,
+                         ids=[c[0] for c in MERGE_CASES])
+def test_overlay_merge_into_kernel_matches_plain(cuda, name, a, b, cap_out):
+    """K2 into a target == ``merge_overlay_into_torch`` on a copy of it,
+    fills equal, for targets filled below, past and at the merged count
+    (a fresh one: fill = cap) and pack fill bounds exact and loose; the
+    sentinel past max(n_out, fill) survives."""
+    rng = np.random.default_rng(cap_out)
+    pa = port.overlay_from_numpy(a, cuda)["ov_pack"]
+    pb = port.overlay_from_numpy(b, cuda)["ov_pack"]
+    fresh = k2.merge_overlay_pack_torch(pa, pb, cap_out)
+    n_out = int((fresh[0] != BIASED_MAX).sum())
+    live = int((pa[0] != BIASED_MAX).sum())
+    for f_t in sorted({0, max(n_out - 7, 0), n_out, n_out + 33, cap_out}):
+        for fill in (live, a.shape[1]):
+            tgt = _target(rng, cap_out, f_t, cuda)
+            exp_t = tgt.clone()
+            n = k2.overlay_merge.launches
+            got = k2.overlay_merge(pa, pb, cap_out, out=tgt, fill=fill,
+                                   out_fill=f_t)
+            assert k2.overlay_merge.launches == n + 1
+            exp = k2.merge_overlay_into_torch(pa, pb, cap_out, exp_t, f_t,
+                                              fill)
+            torch.cuda.synchronize()
+            assert torch.equal(tgt, exp_t), (f_t, fill)
+            assert int(got) == int(exp) == n_out
+            hi = max(n_out, min(f_t, cap_out))
+            assert torch.equal(tgt[:, :hi], fresh[:, :hi])
+            assert bool((tgt[:, hi:] == SENTINEL).all())
+
+
+def test_overlay_merge_stacked_into_kernel_matches_plain(cuda):
+    """K2's stacked form into a target with a fill a row (garbage below
+    it, the sentinel past it) == its plain version, fills equal; the
+    sentinel past each row's max(n_out, fill) survives."""
+    rng = np.random.default_rng(18)
+    pool = rng.choice(2**60, size=40_000, replace=False).astype(np.uint64)
+    rows = [(_pack(rng, [], 4096), _pack(rng, pool[:300], 512)),
+            (_pack(rng, pool[:512], 4096), _pack(rng, pool[:512], 512)),
+            (_pack(rng, pool[:3000], 4096), _pack(rng, pool[2900:3300], 512)),
+            (_pack(rng, pool[:100], 4096), _pack(rng, [], 512)),
+            (_pack(rng, pool[5000:5020], 4096), _pack(rng, pool[:512], 512))]
+    pa = torch.stack([port.overlay_from_numpy(a, cuda)["ov_pack"]
+                      for a, _ in rows])
+    pb = torch.stack([port.overlay_from_numpy(b, cuda)["ov_pack"]
+                      for _, b in rows])
+    fresh = k2.merge_overlay_stacked_torch(pa, pb, 4096)
+    n_out = (fresh[:, 0] != BIASED_MAX).sum(1).tolist()
+    fills = [0, n_out[1] + 100, max(n_out[2] - 50, 0), 4096, n_out[4]]
+    live = (pa[:, 0] != BIASED_MAX).sum(1).tolist()
+    tgt = torch.stack([_target(rng, 4096, f, cuda) for f in fills])
+    exp_t = tgt.clone()
+    n = k2.overlay_merge_stacked.launches
+    got = k2.overlay_merge_stacked(pa, pb, 4096, out=tgt, fill=live,
+                                   out_fill=fills)
+    assert k2.overlay_merge_stacked.launches == n + 1
+    exp = k2.merge_overlay_stacked_into_torch(pa, pb, 4096, exp_t, fills,
+                                              live)
+    torch.cuda.synchronize()
+    assert torch.equal(tgt, exp_t)
+    assert got.tolist() == exp.tolist() == n_out
+    for s, f in enumerate(fills):
+        hi = max(n_out[s], f)
+        assert torch.equal(tgt[s, :, :hi], fresh[s, :, :hi]), s
+        assert bool((tgt[s, :, hi:] == SENTINEL).all()), s
+    # one fill for every row
+    tgt = torch.stack([_target(rng, 4096, 700, cuda) for _ in rows])
+    exp_t = tgt.clone()
+    got = k2.overlay_merge_stacked(pa, pb, 4096, out=tgt, out_fill=700)
+    exp = k2.merge_overlay_stacked_into_torch(pa, pb, 4096, exp_t, 700)
+    torch.cuda.synchronize()
+    assert torch.equal(tgt, exp_t) and got.tolist() == exp.tolist()
+
+
+def test_engine_steps_serve_from_two_buffers(cuda):
+    """Consecutive merge steps of ``IndexEngine`` on the card serve from
+    two alternating buffers (the merge writes into the spare), and the
+    served pack equals the CPU engine's after every step."""
+    keys = make_dataset("covid", 3_000, seed=2)
+    rng = np.random.default_rng(6)
+    engines = []
+    for device in ("cpu", cuda):
+        idx = Aulid(BlockDevice(), cfg=AulidConfig(**GEOMS["512b"]))
+        idx.bulkload(keys, payloads_for(keys))
+        engines.append(IndexEngine(idx, device=device, gamma=0.5))
+    ptrs = []
+    for _ in range(5):
+        fresh = rng.integers(1, 2**60, 30, dtype=np.uint64)
+        step = ([("insert", int(k), int(k) % 13) for k in fresh]
+                + [("delete", int(k)) for k in rng.choice(keys, 5)]
+                + [("get", int(k)) for k in fresh[:5]])
+        outs = []
+        for eng in engines:
+            reqs = [eng.submit(*r) for r in step]
+            eng.step()
+            outs.append([r.result for r in reqs])
+        assert outs[0] == outs[1]
+        assert torch.equal(engines[1].ov_arrs["ov_pack"].cpu(),
+                           engines[0].ov_arrs["ov_pack"])
+        ptrs.append(engines[1].ov_arrs["ov_pack"].data_ptr())
+    # the first merge takes a fresh target; from then on two buffers
+    assert ptrs[0] == ptrs[2] == ptrs[4] != ptrs[1] == ptrs[3]
+    assert engines[1].stats()["overlay_merges"] == 5
 
 
 def _drive(eng, trace):

@@ -30,8 +30,8 @@ from repro_torch.core import Aulid, AulidConfig, BlockDevice
 from repro_torch.core import lookup as port
 from repro_torch.core.device_index import (build_device_index,
                                            refresh_device_index)
-from repro_torch.core.keys import (bits_from_tensor, keys_from_tensor,
-                                   keys_to_tensor)
+from repro_torch.core.keys import (BIASED_MAX, bits_from_tensor,
+                                   keys_from_tensor, keys_to_tensor)
 from repro_torch.kernels.fused_lookup import ops as k1
 
 DATASETS = ("covid", "planet", "genome", "osm")
@@ -160,6 +160,72 @@ def test_scans_match_reference(name, geom):
         assert (keys_from_tensor(got[0]) == np.asarray(exp[0])).all()
         assert (bits_from_tensor(got[1]) == np.asarray(exp[1])).all()
         assert (got[2].numpy() == np.asarray(exp[2])).all()
+
+
+def _union_sort(ks, ps, vs, pack, q, count, hide):
+    """The reference's overlay-scan union, transcribed: every snapshot
+    candidate and the first ``hide`` overlay slots, argsorted whole."""
+    keys, cap = pack[0], pack.shape[1]
+    pos = torch.searchsorted(keys, ks)
+    vs = vs & ~((pos < cap) & (keys[pos.clamp(0, cap - 1)] == ks))
+    keys, pays, tombs = keys[:hide], pack[1, :hide], pack[2, :hide] != 0
+    Q = q.shape[0]
+    ov_v = (keys[None] != BIASED_MAX) & ~tombs[None] & (keys[None] >= q[:, None])
+    comb_k = torch.cat([ks, keys[None].expand(Q, hide)], 1)
+    comb_p = torch.cat([ps, pays[None].expand(Q, hide)], 1)
+    comb_v = torch.cat([vs, ov_v], 1)
+    order = torch.argsort(torch.where(comb_v, comb_k, BIASED_MAX), dim=1,
+                          stable=True)[:, :count]
+    return (comb_k.gather(1, order), comb_p.gather(1, order),
+            comb_v.gather(1, order))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (7, 3), (64, 64), (64, 70),
+                                 (300, 17)])
+def test_first_true_is_the_stable_argsort(n, k):
+    rng = np.random.default_rng(n * 100 + k)
+    rows = [rng.random(n) < p for p in (0.0, 0.05, 0.5, 0.95, 1.0)]
+    mask = torch.from_numpy(np.stack(rows))
+    exp = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)[:, :k]
+    assert torch.equal(port._first_true(mask, k), exp)
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("count,hide", [(1, 8), (5, 40), (16, 4), (16, 64)])
+def test_overlay_scan_merge_equals_the_whole_union(seed, count, hide):
+    """Each side cut to ``count`` columns by prefix counts gives the whole
+    union's sort: owned candidates, tombstones, rows with fewer valid
+    entries than ``count`` (the invalid tail), a full pack (no padding)
+    and valid keys equal to ``BIASED_MAX``."""
+    rng = np.random.default_rng(seed)
+    Q, cap, base = 10, 64, count + hide
+    lo = -(2**40)
+    fill = cap if seed % 3 == 0 else int(rng.integers(0, cap))
+    pk = np.full(cap, int(BIASED_MAX), np.int64)
+    pk[:fill] = np.sort(rng.choice(400, fill, replace=False)) + lo
+    if seed % 4 == 1 and fill:
+        pk[fill - 1] = int(BIASED_MAX)
+    pack = torch.from_numpy(np.stack([
+        pk, rng.integers(-2**62, 2**62, cap),
+        (rng.random(cap) < 0.3).astype(np.int64)]))
+    q = torch.from_numpy(rng.integers(0, 300, Q) + lo)
+    ks = rng.integers(-2**62, 2**62, (Q, base))
+    vs = np.zeros((Q, base), bool)
+    for i in range(Q):
+        nv = int(rng.integers(0, base + 1))
+        ks[i, :nv] = np.sort(rng.choice(500, nv, replace=False)) \
+            + int(q[i])
+        if seed % 2 and nv:
+            ks[i, nv - 1] = int(BIASED_MAX)
+        vs[i, :nv] = True
+    ks = torch.from_numpy(ks)
+    ps = torch.from_numpy(rng.integers(-2**62, 2**62, (Q, base)))
+    vs = torch.from_numpy(vs)
+    got = port._overlay_scan_merge(ks.clone(), ps.clone(), vs.clone(), pack,
+                                   q, count, hide)
+    exp = _union_sort(ks, ps, vs, pack, q, count, hide)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
 
 
 @pytest.mark.parametrize("name,geom", CASES, ids=_IDS)

@@ -9,6 +9,9 @@ engines' counters, across shard-local compaction (cold shards keep their
 snapshot epoch), background compaction pumped by hand (``ManualExecutor``
 set on both packages' ``_COMPACT_POOL``), forced splits and merges, a
 failed split build, and synchronous against background repartitioning.
+Where the twins step together, the port's served overlay pack equals the
+reference's after every step (``test_torch_overlay_merge.check_served``:
+the port's two packs keep padding past their fills).
 """
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import pytest
 pytest.importorskip("jax")   # the reference; absent where only the port runs
 
 from test_async_compaction import ManualExecutor
+from test_torch_overlay_merge import check_served
 
 from repro.core import AulidConfig as RefConfig
 from repro.core import partition_bulkload as ref_partition
@@ -112,8 +116,9 @@ def test_randomized_trace_matches_reference_and_monolithic(seed):
     mono_idx.bulkload(keys, payloads_for(keys))
     mono = IndexEngine(mono_idx, device="cpu")
     trace = _trace(keys, seed)
-    got = _drive(port, trace)
-    assert got == _drive(ref, trace)
+    got = []
+    for step in trace:
+        got += _both(ref, port, step)
     assert got == _drive(mono, trace)
     _same_stats(ref, port)
     for sh in port.shards:
@@ -159,6 +164,7 @@ def test_cold_shards_keep_snapshot_epoch(pools, async_compact):
     out = []
     for step in trace:
         out.append((_drive(ref, [step]), _drive(port, [step])))
+        check_served(ref.ov_arrs, port.ov_arrs)
         assert pools[0].pump() == pools[1].pump()
     assert all(a == b for a, b in out)
     ref.drain_compactions()
@@ -198,6 +204,7 @@ def test_async_storm_matches_reference_and_sync(pools):
     for i, step in enumerate(trace):
         for out, eng in zip(outs, (ref, port, sync)):
             out += _drive(eng, [step])
+        check_served(ref.ov_arrs, port.ov_arrs)
         if i == 0:
             assert port.stats()["inflight"] == ref.stats()["inflight"] == 3
         if i >= 1:
@@ -211,6 +218,21 @@ def test_async_storm_matches_reference_and_sync(pools):
 
 
 # -------------------------------------------------------------- repartition
+def test_hot_key_updates_keep_the_fill_bound_at_the_live_count():
+    """As the monolithic engine's test: updates of the same keys in every
+    shard keep the merged pack's fill bound at the shards' entry count."""
+    keys, ref, port = _pair(gamma=0.5, overlay_merge=True)
+    hot = [int(k) for k in keys[::37][:40]]
+    for s in range(12):
+        _both(ref, port, [("insert", k, s * 1000 + i)
+                          for i, k in enumerate(hot)]
+              + [("get", hot[s]), ("scan", hot[0], 0, 7)])
+    assert port.stats()["overlay_merges"] >= 10
+    live = sum(len(sh.overlay) for sh in port.shards)
+    assert port.ov_arrs["ov_fill"] == live == len(hot)
+    assert port.ov_arrs["ov_spare"][1] == len(hot)
+
+
 def _repart_pair(**kw):
     kw.setdefault("split_ratio", 1e9)     # policy off: tests force explicitly
     kw.setdefault("min_split_items", 16)
@@ -220,6 +242,7 @@ def _repart_pair(**kw):
 def _both(ref, port, reqs):
     a, b = _drive(ref, [reqs]), _drive(port, [reqs])
     assert a == b
+    check_served(ref.ov_arrs, port.ov_arrs)
     return b
 
 
