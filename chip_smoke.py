@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the AULID serving engine on one CUDA card.
 
-    python3 chip_smoke.py      # 200M keys, 50 steps (30 in 8 shards), not cut
+    python3 chip_smoke.py      # 200M keys, 50 steps (30 in 8 shards, 25 on
+                               # the index mesh), not cut
 
 Phases (any failure raises, so the exit code is non-zero and no result is
 printed):
@@ -31,6 +32,10 @@ printed):
    every kind, fresh and into a poisoned target with a fill a row, and on
    8 rows of Ca = cap_out = 2^21 with Cb = 64, timed in steady state (into
    a target holding padding past the rows' fills) and into a fresh one;
+   on those rows its mesh form (``overlay_merge_stacked_mesh``, each
+   position merging its own rows) over cuda:0 named 1, 2 and 4 times ==
+   the one-launch stacked form == the plain merge, one launch a position,
+   timed at 4 positions;
 3. the main path: ``IndexEngine`` serving 200M covid-like keys (payload =
    key + 1, default 4 KB geometry — the paper's evaluation size) for 50
    steps of 8192 gets (10% absent), 512 writes (60% new-key inserts, 30%
@@ -48,7 +53,19 @@ printed):
    compacts, cold shards keep their mirror epochs) and online
    repartitioning (drift inserts until the load monitor splits, then a
    merge forced by hand), with no compaction, split or merge build
-   failed;
+   failed; then the index mesh at 1M keys in 8 shards, over cuda:0 named
+   1, 2 and 4 times (the stand-in for a mesh of cards: it exercises the
+   routing, the per-position launches and the installs, not copies
+   between cards): ``lookup_batch_sharded_mesh`` (with and without the
+   overlay, a window of the whole batch and of the host route's bound)
+   and the mesh scans (with and without the overlay) == the one-device K1
+   shard route and scans on the same stack, each position's K1 launch ==
+   its plain version, one launch a position a read; then a restart from a
+   snapshot: the background repartitioning run's lived partition (boundary
+   version above 0) saved with ``save_partition`` into a temporary
+   directory (deleted after), loaded with ``load_partition`` and served on
+   a 4-position mesh for 10 steps, the first reading back every write
+   acknowledged before the snapshot, every result checked;
 5. the numbers: K1/K2 held once more against their plain versions on the
    main path's own tensors, then both timed with CUDA events at those
    shapes (median launch; L2 flushed and the stream held before each
@@ -85,6 +102,17 @@ printed):
    every shard served and no background build failed; the step's
    breakdown and its device time (``torch.profiler``); K1's shard route
    held and timed on the run's own tensors beside the monolithic K1;
+6b. the mesh path, after the sharded engine is freed: a
+   ``ShardedIndexEngine`` over the same partition (its shards hold every
+   write served so far) on cuda:0 named 4 times (2 shards a position),
+   serving 25 steps of the same traffic, every result checked against the
+   same oracle and every merged pack with ``MergeCheck``; the launches read
+   around exactly that run must be K1 2 x 4 a step (one a position a read
+   batch), K3 1 (the overlay merge after the gather), K2 1 and K2's
+   stacked form 0, and the peak device memory within 2% of the sharded
+   path's (one stack); its breakdown and a 3-step profile; K1's
+   per-position launches held and timed on the run's last get batch, and
+   K3 beside ``torch.searchsorted``;
 7. the LM serving path, after the index path's tensors are freed: the LM
    ``ServeEngine`` on the card held to the same engine on the CPU on a tiny
    config (equal tokens, logits within 1e-4); then qwen3-4b at full width
@@ -111,8 +139,10 @@ printed):
    K1 beside its plain version and ``scaled_dot_product_attention`` on the
    same KV gathered contiguous (the gather not timed); then the
    ``kernels`` line (K6's long-context numbers, its served ones under
-   ``served``; K1's shard route under K1's ``sharded``, K2's stacked form
-   under K2's ``stacked``) and, last, ``{"ok": true, "device": {...}}``.
+   ``served``; K1's shard route under K1's ``sharded`` and its launches on
+   the mesh path under ``mesh``; K2's stacked form under K2's ``stacked``,
+   its mesh form under that entry's ``mesh``; K3 on the mesh path under
+   K3's ``mesh``) and, last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without CUDA and when run outside a checkout of the
 repository (it imports the port from ``src/`` beside it).
@@ -155,7 +185,8 @@ STAGED = {
 }
 # K1's shard route and K2's stacked form, held against their plain versions
 # under their own names (they build from K1's and K2's sources)
-FORMS = ("fused_lookup_sharded", "overlay_merge_stacked")
+FORMS = ("fused_lookup_sharded", "overlay_merge_stacked",
+         "fused_lookup_sharded_mesh", "overlay_merge_stacked_mesh")
 # K1-sharded parity stacks at 200k keys, 512-B geometry: (live shards,
 # slots); (5, 8) pads 5 live shards with placeholder slots
 K1S_LAYOUTS = [(1, 0), (3, 0), (8, 0)]
@@ -166,6 +197,12 @@ K1S_KEYS, K1S_BIG_KEYS = 200_000, 20_000_000
 SHARDS = 8
 SHARDED_STEPS = 30
 MAINT_KEYS = 1_000_000
+# the index mesh on the one card: cuda:0 named MESH_D times (the stand-in
+# for a mesh of cards); parity at each of MESH_PARITY_D positions
+MESH_D = 4
+MESH_PARITY_D = (1, 2, 4)
+MESH_STEPS = 25
+RESTART_STEPS = 10
 K6_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 K6_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:77"
 KERNELS = ("fused_lookup", "overlay_merge", *STAGED, "paged_attention")
@@ -681,7 +718,47 @@ def k2_stacked_parity(par: Parity, dev, card: str) -> dict:
     log(f"k2 stacked into a fresh target: median {out['fresh_ms']} ms "
         "against the full rewrite's bound "
         f"{bound_ms(24 * (n_in + nb) + 24 * SHARDS * ca)} ms")
+    out["mesh"] = k2_stacked_mesh(par, dev, pa, pb, ca, exp, flush)
+    out["mesh"]["bound_ms"] = bound_ms(24 * (n_in + nb) + 24 * SHARDS * ca)
     return out
+
+
+def k2_stacked_mesh(par: Parity, dev, pa, pb, ca: int, exp, flush) -> dict:
+    """K2's stacked form on the index mesh (``overlay_merge_stacked_mesh``:
+    each position merges its own rows) == the one-launch stacked form on
+    the card == the plain merge, on the timed rows, over cuda:0 named D
+    times for D in MESH_PARITY_D, one launch a position; then timed at
+    MESH_D positions into fresh packs (the mesh form's only output)
+    beside the plain merge."""
+    from repro_torch.kernels.overlay_merge.ops import (
+        merge_overlay_stacked_torch, overlay_merge_stacked,
+        overlay_merge_stacked_mesh)
+    from repro_torch.parallel import index_mesh
+    one = overlay_merge_stacked(pa, pb, ca)
+    for D in MESH_PARITY_D:
+        mesh = index_mesh(D, devices=[dev] * D)
+        n0 = overlay_merge_stacked_mesh.launches
+        got = overlay_merge_stacked_mesh(mesh, pa, pb, ca)
+        if overlay_merge_stacked_mesh.launches - n0 != D:
+            raise AssertionError(f"k2 stacked mesh D={D}: "
+                                 f"{overlay_merge_stacked_mesh.launches - n0}"
+                                 " launches, not one a position")
+        par.hold("overlay_merge_stacked_mesh", (got,), (one,))
+        par.hold("overlay_merge_stacked_mesh", (got,), (exp,))
+        log(f"k2 stacked mesh parity S={pa.shape[0]} over {D} positions of "
+            f"{pa.device}: == overlay_merge_stacked == the plain merge; "
+            f"launches at each position {[1] * D}")
+    del one, got
+    mesh = index_mesh(MESH_D, devices=[dev] * MESH_D)
+    mm = time_cuda(lambda: overlay_merge_stacked_mesh(mesh, pa, pb, ca), 20,
+                   flush)
+    pm = time_cuda(lambda: merge_overlay_stacked_torch(pa, pb, ca), 5, flush,
+                   PLAIN_HOLD_CYCLES)
+    return {"name": "overlay_merge_stacked_mesh", "route": "cuda",
+            "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "positions": MESH_D, "ms": float(np.median(mm)),
+            "mean_ms": float(mm.mean()), "plain_ms": float(np.median(pm)),
+            "bound_by": "bytes", "library_ms": None}
 
 
 # ------------------------------------------------------------- phases 3 and 4
@@ -1179,6 +1256,7 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
         "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
         "first_step_ms": float(step_s[0]) * 1e3,
         "max_memory_allocated_bytes": int(merges.max_memory_allocated()),
+        "stack_bytes": stack_bytes(eng.stk),
         "overwrite_share": merges.overwrite_share(),
         "setup_s": {"bulkload": t1 - t0, "mirror_stack_upload": t2 - t1},
         "gets_per_shard": per_shard.tolist(),
@@ -1199,9 +1277,10 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
     for k in ("fused_lookup_sharded", "overlay_merge"):
         if launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the sharded path")
-    # one card keeps one flat overlay pack: the stacked merge is the mesh's
+    # the engines keep one flat overlay pack, on the mesh too: no engine
+    # merges stacked packs (nor does the reference's)
     if launches["overlay_merge_stacked"]:
-        raise AssertionError("overlay_merge_stacked ran on the one-card path")
+        raise AssertionError("overlay_merge_stacked ran on the sharded path")
     _no_failed_builds(st, "sharded path")
     if (per_shard == 0).any():
         raise AssertionError(f"a shard got no gets: {per_shard.tolist()}")
@@ -1233,7 +1312,191 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
     log(f"k1 sharded parity sharded path ({n}-key stack, Q={Q}, overlay "
         f"{tuple(ovr['ov_pack'].shape)}): exact; timed on {card}: "
         + json.dumps(out["k1"]))
+    # what the mesh path serves on: the partition (its shards hold every
+    # write served so far), the oracle and the traffic; not the engine
+    return out, {"part": part, "oracle": oracle, "make": make}
+
+
+def mesh_phase(state: dict, sh: dict, dev, card: str, par: Parity) -> dict:
+    """The mesh path at full size, after the sharded path's engine is
+    freed: a ``ShardedIndexEngine`` over the same partition on the index
+    mesh (cuda:0 named MESH_D times: 2 shards a position) serving
+    MESH_STEPS steps of the same skewed traffic, every result checked
+    against the same oracle and every merged pack with ``MergeCheck``; the
+    launches of K1 (one a position a read batch), K3, K2 and K2's stacked
+    form read around exactly that run; the peak device memory held within
+    2% of the sharded path's (one stack); the step's breakdown and a
+    3-step profile; then K1's per-position launches held and timed on the
+    run's last get batch beside their plain versions, and K3 at the same
+    batch beside ``torch.searchsorted``."""
+    import torch
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.kernels.fused_lookup.ops import (
+        fused_lookup_sharded, fused_lookup_sharded_mesh, k1_bytes, k1_walks,
+        lookup_sharded_plain)
+    from repro_torch.kernels.overlay_merge.ops import (
+        overlay_merge, overlay_merge_stacked, overlay_merge_stacked_mesh)
+    from repro_torch.kernels.overlay_probe.ops import (k3_bytes,
+                                                       overlay_probe,
+                                                       overlay_probe_plain)
+    from repro_torch.parallel import index_mesh
+    from repro_torch.serving import ShardedIndexEngine, pad_queries
+
+    part, oracle, make = state["part"], state["oracle"], state["make"]
+    log(f"mesh path: {part.n_items} keys in {part.num_shards} shards on "
+        f"{MESH_D} positions of {dev}, {MESH_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = index_mesh(MESH_D, devices=[dev] * MESH_D)
+    eng = ShardedIndexEngine(part, mesh=mesh)        # gamma = 0.05
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stk = eng.stk
+    log(f"mesh set-up: mirrored, stacked on the host and placed in "
+        f"{setup_s:.3f} s (a position's leaf pool "
+        f"{tuple(stk['leaf_keys'][0].shape)}, {len(stk['leaf_keys'])} "
+        f"positions; overlay pack {tuple(eng.ov_arrs['ov_pack'].shape)})")
+    rng = np.random.default_rng(41)
+    trace = [make(rng) for _ in range(MESH_STEPS)]
+    counters = (fused_lookup_sharded, fused_lookup_sharded_mesh,
+                overlay_probe, overlay_merge, overlay_merge_stacked,
+                overlay_merge_stacked_mesh)
+    with MergeCheck(par) as merges:
+        for c in counters:
+            c.launches = 0
+        serve_and_check(eng, oracle, trace, merges)
+        launches = {c.__name__: c.launches for c in counters}
+    st = eng.stats()
+    step_s = np.asarray(eng.step_seconds)
+    peak = int(merges.max_memory_allocated())
+    out = {
+        "card": card, "keys": int(part.n_items), "shards": part.num_shards,
+        "mesh_devices": st["mesh_devices"], "steps": st["steps"],
+        "requests": sum(len(s) for s in trace),
+        "steps_per_s": st["steps"] / eng.serve_seconds,
+        "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+        "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+        "first_step_ms": float(step_s[0]) * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "stack_bytes": stack_bytes(stk),
+        "sharded_peak_bytes": sh["max_memory_allocated_bytes"],
+        "sharded_stack_bytes": sh["stack_bytes"],
+        "overwrite_share": merges.overwrite_share(),
+        "setup_s": setup_s, "overlay_merges": st["overlay_merges"],
+        "overlay_reseeds": st["overlay_reseeds"],
+        "compactions": st["compactions"], "launches": launches,
+        "merges_held": merges.merges,
+        "checked": "every get, write and scan result equals the oracle; "
+                   "every merged pack equals the plain merge",
+    }
+    log("mesh path: " + json.dumps(out))
+    steps = MESH_STEPS
+    want = {"fused_lookup_sharded_mesh": 2 * MESH_D * steps,
+            "fused_lookup_sharded": 2 * MESH_D * steps,
+            "overlay_probe": steps, "overlay_merge": steps,
+            "overlay_merge_stacked": 0, "overlay_merge_stacked_mesh": 0}
+    if launches != want:
+        raise AssertionError(f"mesh path launches {launches}, want {want}")
+    if merges.merges != st["overlay_merges"]:
+        raise AssertionError(f"mesh path: {merges.merges} merges held of "
+                             f"{st['overlay_merges']}")
+    _no_failed_builds(st, "mesh path")
+    # the partition has lived: its hot shard's leaf rows may have crossed
+    # the stack's pow2 headroom (stack_device_indexes), so the stack may be
+    # larger than the sharded path's; above the stack, the peak must be the
+    # sharded path's within 2% of it: a stack held twice fails this
+    expect = sh["max_memory_allocated_bytes"] - sh["stack_bytes"] \
+        + out["stack_bytes"]
+    if abs(peak - expect) > 0.02 * sh["max_memory_allocated_bytes"]:
+        raise AssertionError(f"mesh path peak {peak} bytes is not within 2% "
+                             f"of the sharded path's "
+                             f"{sh['max_memory_allocated_bytes']} over a "
+                             f"stack of {out['stack_bytes']} bytes (the "
+                             f"sharded one {sh['stack_bytes']})")
+    out["breakdown_s"] = breakdown(eng, oracle, make, 5)
+    out["profile"] = index_profile(eng, oracle, make, 3, "mesh path")
+    _no_failed_builds(eng.stats(), "mesh path")
+
+    # K1 at each position and K3 on the run's own tensors: the last get
+    # batch, routed as the engine routes it
+    ovr, h = eng.ov_arrs, eng._height()
+    qn = pad_queries([r[1] for r in trace[-1] if r[0] == "get"])
+    q = keys_to_tensor(qn, dev)
+    eng._route_q = qn
+    qcap = eng._mesh_qcap(stk)
+    wins = _mesh_windows(stk, q, qcap, eng.sdi.meta.shape[0] // MESH_D,
+                         mesh)
+    for local, qwin in wins:
+        par.hold("fused_lookup_sharded",
+                 fused_lookup_sharded(local, None, qwin, h),
+                 lookup_sharded_plain(local, None, qwin, h))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    km = time_cuda(lambda: [fused_lookup_sharded(lo, None, qw, h)
+                            for lo, qw in wins], 50, flush)
+    pm = time_cuda(lambda: [lookup_sharded_plain(lo, None, qw, h)
+                            for lo, qw in wins], 10, flush,
+                   PLAIN_HOLD_CYCLES)
+    cm = time_cuda(lambda: fused_lookup_sharded_mesh(mesh, stk, q, h, qcap),
+                   20, flush, PLAIN_HOLD_CYCLES)
+    nbytes = 0
+    for lo, qw in wins:
+        leaf = fused_lookup_sharded(lo, None, qw, h)[2]
+        nbytes += k1_bytes(qw.shape[0], k1_walks(lo, qw),
+                           int(torch.unique(leaf).numel()),
+                           lo["leaf_keys"].shape[2], False, True,
+                           lo["bounds"].numel())
+    out["k1"] = {"name": "fused_lookup_sharded_mesh", "route": "cuda",
+                 "source": K1_SOURCE, "replaces": K1S_REPLACES,
+                 "positions": MESH_D, "Q": q.shape[0], "qcap": qcap,
+                 "window": wins[0][1].shape[0],
+                 "launches": launches["fused_lookup_sharded_mesh"],
+                 "launches_per_position_per_step": 2,
+                 "max_abs_err": par.err["fused_lookup_sharded"],
+                 "ms": float(np.median(km)), "mean_ms": float(km.mean()),
+                 "plain_ms": float(np.median(pm)),
+                 "call_ms": float(np.median(cm)),
+                 "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                 "library_ms": None}
+    log(f"k1 mesh on the mesh path ({MESH_D} launches, one a position, "
+        f"windows of {wins[0][1].shape[0]} of Q={q.shape[0]}): each == its "
+        f"plain version; timed on {card} (ms: the {MESH_D} launches; "
+        f"call_ms: the whole mesh read, routing included): "
+        + json.dumps(out["k1"]))
+    got = overlay_probe(ovr, q)
+    par.hold("overlay_probe", got, overlay_probe_plain(ovr, q))
+    keys = ovr["ov_pack"][0]
+    k3m = time_cuda(lambda: overlay_probe(ovr, q), 50, flush)
+    k3p = time_cuda(lambda: overlay_probe_plain(ovr, q), 10, flush,
+                    PLAIN_HOLD_CYCLES)
+    k3l = time_cuda(lambda: torch.searchsorted(keys, q), 50, flush)
+    out["k3"] = {"name": "overlay_probe", "route": "cuda",
+                 "source": STAGED["overlay_probe"][0],
+                 "replaces": STAGED["overlay_probe"][1],
+                 "Q": q.shape[0], "pack": keys.shape[0],
+                 "launches": launches["overlay_probe"],
+                 "max_abs_err": par.err["overlay_probe"],
+                 "ms": float(np.median(k3m)), "mean_ms": float(k3m.mean()),
+                 "plain_ms": float(np.median(k3p)),
+                 "bound_ms": bound_ms(k3_bytes(q.shape[0],
+                                               int(got[1].sum()))),
+                 "bound_by": "bytes",
+                 "library_ms": float(np.median(k3l))}
+    log(f"k3 on the mesh path (Q={q.shape[0]}, pack {keys.shape[0]}): == "
+        f"its plain version; timed on {card}: " + json.dumps(out["k3"]))
     return out
+
+
+def stack_bytes(stk: dict) -> int:
+    """Device bytes of a (placed or one-device) stack's tensors, each
+    storage once: a mesh that names one card several times shares its
+    replicated fields."""
+    import torch
+    seen = {}
+    for v in stk.values():
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if torch.is_tensor(t):
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def _no_failed_builds(st: dict, what: str) -> None:
@@ -1256,7 +1519,7 @@ def _hot_step(rng, keys, hot: tuple, hot_keys) -> list:
             + [("scan", int(k), 0, 100) for k in rng.choice(keys, 8)])
 
 
-def sharded_maintenance(dev) -> None:
+def sharded_maintenance(dev) -> dict:
     """The sharded engine's maintenance on the card at MAINT_KEYS keys in
     SHARDS shards, every result checked against the oracle, synchronous
     and background runs answering request for request alike:
@@ -1351,6 +1614,207 @@ def sharded_maintenance(dev) -> None:
         if results[(phase, "sync")] != results[(phase, "async")]:
             raise AssertionError(f"sharded {phase}: sync != async")
     log("sharded maintenance: sync == async, request for request")
+    # the background run's partition, lived (split, then merged) and
+    # holding every acknowledged write, for the restart from a snapshot
+    return {"part": eng.part, "oracle": oracle, "keys": keys}
+
+
+def _mesh_windows(stk: dict, q, qcap, Sl: int, mesh) -> list:
+    """Each position's K1 operands and window of the batch ``q``, as
+    ``fused_lookup_sharded_mesh`` builds them: (local stack, window)."""
+    import torch
+    from repro_torch.core.keys import BIASED_MAX
+    from repro_torch.kernels.fused_lookup.ops import _mesh_window, _position
+    window = q.shape[0] if qcap is None \
+        else min(max(qcap * Sl, 1), q.shape[0])
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        local = torch.searchsorted(stk["bounds"][d], q.to(dev)) - d * Sl
+        owned = (local >= 0) & (local < Sl) & (q.to(dev) != BIASED_MAX)
+        out.append((_position(stk, d, Sl), _mesh_window(q.to(dev), owned,
+                                                        window)[0]))
+    return out
+
+
+def _same_read(one, got, real, what: str) -> None:
+    """A mesh read == the one-device read: found and payload where the
+    query is real, leaf rows where found, shard ids where real.  The
+    sentinel (2**64 - 1) is owned by no position: a snapshot read gives it
+    zeros; merged with the overlay, it hits the pack's padding on both."""
+    import torch
+    torch.cuda.synchronize()
+    ok = torch.equal(got[2][got[1] & real], one[2][got[1] & real])
+    if len(one) > 3:
+        ok = ok and torch.equal(got[1][real], one[1][real]) \
+            and torch.equal(got[0][real], one[0][real]) \
+            and torch.equal(got[3][real], one[3][real]) \
+            and not got[1][~real].any() and not got[0][~real].any()
+    else:
+        ok = ok and torch.equal(got[1], one[1]) and torch.equal(got[0],
+                                                                one[0])
+    if not ok:
+        raise AssertionError(f"{what}: mesh read != the one-device read")
+
+
+def _same_scan(one, got, what: str) -> None:
+    import torch
+    torch.cuda.synchronize()
+    kb, vb, mb = one
+    km, vm, mm = got
+    if not (torch.equal(mb, mm) and torch.equal(kb[mb], km[mb])
+            and torch.equal(vb[mb], vm[mb])):
+        raise AssertionError(f"{what}: mesh scan != the one-device scan")
+
+
+def mesh_parity(par: Parity, dev) -> None:
+    """The index mesh on the card at MAINT_KEYS keys in SHARDS shards:
+    over cuda:0 named D times (D in MESH_PARITY_D), the mesh read
+    (``lookup_batch_sharded_mesh``, with and without the overlay, a window
+    of the whole batch and of the host route's bound) and the mesh scans
+    (with and without the overlay) == the one-device K1 shard route and
+    scans on the same stack, whose slices the placed stack views; each
+    position's K1 launch == its plain version on its window; one launch a
+    position a read."""
+    import torch
+    from repro_torch.core import lookup as L
+    from repro_torch.core import partition_bulkload
+    from repro_torch.core.delta_overlay import next_pow2
+    from repro_torch.core.keys import keys_to_tensor
+    from repro_torch.core.workloads import make_dataset, payloads_for
+    from repro_torch.kernels.fused_lookup.ops import (
+        fused_lookup_sharded, fused_lookup_sharded_mesh, lookup_sharded_plain)
+    from repro_torch.parallel import index_mesh, place_stacked
+    from repro_torch.serving import ShardedIndexEngine
+    keys = make_dataset("covid", MAINT_KEYS, seed=5)
+    eng = ShardedIndexEngine(partition_bulkload(keys, payloads_for(keys),
+                                                SHARDS), device=dev)
+    rng = np.random.default_rng(43)
+    lo, hi = int(keys[0]), int(keys[-1]) + 1
+    serve_and_check(eng, Oracle(keys), [make_step(rng, keys, lo, hi, 1024,
+                                                  2048, 8)
+                                        for _ in range(2)])
+    stk, ovr, h = eng.stk, eng.ov_arrs, eng._height()
+    qn = _bound_queries(keys, eng.sdi.bounds, rng, 6000, 2000)
+    q = keys_to_tensor(qn, dev)
+    real_np = qn != np.uint64(2**64 - 1)
+    real = torch.from_numpy(real_np).to(dev)
+    # the engine's host route: the most queries one shard owns, bucketed
+    load = np.bincount(eng.part.shard_of_batch(qn[real_np]), minlength=SHARDS)
+    qcap = min(next_pow2(max(int(load.max()), 8)), qn.size)
+    S = stk["meta"].shape[0]
+    stk_cpu = {f: v.cpu() if torch.is_tensor(v) else v
+               for f, v in stk.items()}
+    one = L.lookup_batch_sharded(stk, q, h)
+    one_ov = L.lookup_batch_sharded_overlay(stk, ovr, q, h)
+    scans = {ov: (L.scan_batch_sharded_overlay(stk, ovr, q[:512], count=100,
+                                               height=h, ov_bound=4096)
+                  if ov else L.scan_batch_sharded(stk, q[:512], count=100,
+                                                  height=h))
+             for ov in (False, True)}
+    for D in MESH_PARITY_D:
+        mesh = index_mesh(D, devices=[dev] * D)
+        placed = place_stacked(stk, mesh)
+        if placed["leaf_keys"][0].data_ptr() != stk["leaf_keys"].data_ptr():
+            raise AssertionError("the placed stack copies the pools")
+        mesh_cpu = index_mesh(D, devices=["cpu"] * D)
+        placed_cpu = place_stacked(stk_cpu, mesh_cpu)
+        per = []
+        for c in (None, qcap):
+            n0 = fused_lookup_sharded_mesh.launches
+            got = L.lookup_batch_sharded_mesh(mesh, placed, q, h, c)
+            per.append(fused_lookup_sharded_mesh.launches - n0)
+            _same_read(one, got, real, f"mesh D={D} qcap={c}")
+            # the same mesh read through the plain versions, on the host
+            plain = L.lookup_batch_sharded_mesh(mesh_cpu, placed_cpu,
+                                                q.cpu(), h, c)
+            par.hold("fused_lookup_sharded_mesh", got,
+                     [t.to(dev) for t in plain])
+            _same_read(one_ov, L.lookup_batch_sharded_overlay_mesh(
+                mesh, placed, ovr, q, h, c), real, f"mesh overlay D={D}")
+        for local, qwin in _mesh_windows(placed, q, qcap, S // D, mesh):
+            par.hold("fused_lookup_sharded",
+                     fused_lookup_sharded(local, None, qwin, h),
+                     lookup_sharded_plain(local, None, qwin, h))
+        _same_scan(scans[False], L.scan_batch_sharded_mesh(
+            mesh, placed, q[:512], count=100, height=h, qcap=qcap),
+            f"mesh scan D={D}")
+        _same_scan(scans[True], L.scan_batch_sharded_overlay_mesh(
+            mesh, placed, ovr, q[:512], count=100, height=h, qcap=qcap,
+            ov_bound=4096), f"mesh overlay scan D={D}")
+        if per != [D, D]:
+            raise AssertionError(f"mesh D={D}: {per} launches a read, not "
+                                 "one a position")
+        log(f"mesh parity {MAINT_KEYS} keys in {SHARDS} shards over {D} "
+            f"positions of {dev} (qcap {qcap}, Q={q.shape[0]}, every bound "
+            f"+-1): reads, overlay reads, scans and overlay scans == the "
+            f"one-device K1 shard route and scans; each position's launch "
+            f"== its plain version; launches at each position a read "
+            f"{[1] * D}")
+        del placed
+
+
+def restart_phase(snap: dict, dev, par: Parity) -> dict:
+    """Restart from a snapshot: phase 4's lived partition (split, then
+    merged; boundary version above 0) saved with ``save_partition`` into a
+    temporary directory (deleted after), loaded with ``load_partition`` and
+    served by a ``ShardedIndexEngine`` on the index mesh (cuda:0 named
+    MESH_D times) for RESTART_STEPS steps: the first gets every key written
+    before the snapshot (each acknowledged write read back), the rest
+    serve mixed traffic; every result equals the oracle."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import (latest_partition_step,
+                                        load_partition, save_partition)
+    from repro_torch.kernels.fused_lookup.ops import fused_lookup_sharded_mesh
+    from repro_torch.parallel import index_mesh
+    from repro_torch.serving import ShardedIndexEngine
+    part, oracle, keys = snap["part"], snap["oracle"], snap["keys"]
+    if part.version <= 0:
+        raise AssertionError("the snapshot's partition has not lived")
+    tmp = tempfile.mkdtemp(prefix="aulid_snapshot_")
+    try:
+        t0 = time.perf_counter()
+        path = save_partition(tmp, 1, part)
+        t1 = time.perf_counter()
+        if latest_partition_step(tmp) != 1:
+            raise AssertionError("the snapshot is not complete")
+        restored = load_partition(path)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp)
+    if restored.version != part.version \
+            or not np.array_equal(restored.bounds, part.bounds) \
+            or [s.n_items for s in restored.shards] \
+            != [s.n_items for s in part.shards]:
+        raise AssertionError("the restored partition differs")
+    eng = ShardedIndexEngine(restored, mesh=index_mesh(
+        MESH_D, devices=[dev] * MESH_D))
+    written = np.array(sorted(oracle.writes), dtype=np.uint64)
+    rng = np.random.default_rng(47)
+    lo, hi = int(keys[0]), int(keys[-1]) + 1
+    trace = [[("get", int(k)) for k in written]]
+    trace += [make_step(rng, keys, lo, hi, 1024, 512, 8)
+              for _ in range(RESTART_STEPS - 1)]
+    n0 = fused_lookup_sharded_mesh.launches
+    with MergeCheck(par) as merges:
+        serve_and_check(eng, oracle, trace, merges)
+    st = eng.stats()
+    out = {"version": restored.version, "shards": restored.num_shards,
+           "keys": int(restored.n_items), "steps": st["steps"],
+           "writes_read_back": int(written.size),
+           "deleted_of_them": sum(oracle.writes[int(k)] is None
+                                  for k in written),
+           "save_s": t1 - t0, "load_s": t2 - t1,
+           "mesh_devices": st["mesh_devices"],
+           "k1_mesh_launches": fused_lookup_sharded_mesh.launches - n0,
+           "merges_held": merges.merges,
+           "checked": "every result equals the oracle; every write "
+                      "acknowledged before the snapshot read back"}
+    log("restart from a snapshot: " + json.dumps(out))
+    _no_failed_builds(st, "restart")
+    if out["k1_mesh_launches"] < MESH_D * RESTART_STEPS:
+        raise AssertionError("the restored engine did not read on the mesh")
+    return out
 
 
 # ------------------------------------------------------------------- phase 5
@@ -2106,15 +2570,22 @@ def main() -> int:
         mp["engine"], mp["oracle"],
         lambda rng: make_step(rng, mp["keys"], lo, hi, 8192, 512, 16), 5)
     compaction_phase(dev, par)
-    sharded_maintenance(dev)
+    snap = sharded_maintenance(dev)
+    mesh_parity(par, dev)
+    restart = restart_phase(snap, dev, par)
+    del snap
     kernels = measure(mp, par, dev)
     kernels += staged_phase(mp, par, dev, card)
     s, keys = mp["summary"], mp["keys"]
     del mp                  # free the monolithic index and its tensors
     gc.collect()
     torch.cuda.empty_cache()
-    sh = sharded_phase(keys, dev, card, par)
+    sh, state = sharded_phase(keys, dev, card, par)
     del keys
+    gc.collect()            # the sharded engine and its stack
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(state, sh, dev, card, par)
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     kernels[0]["sharded"] = {
@@ -2123,12 +2594,21 @@ def main() -> int:
         "monolithic_ms": kernels[0]["ms"],
         "max_abs_err": par.err["fused_lookup_sharded"],
         "cases": par.cases["fused_lookup_sharded"], "parity": "exact"}
+    kernels[0]["mesh"] = {**mesh.pop("k1"),
+                          "cases": par.cases["fused_lookup_sharded_mesh"],
+                          "parity": "exact"}
+    k2s["mesh"].update(
+        launches=mesh["launches"]["overlay_merge_stacked_mesh"],
+        max_abs_err=par.err["overlay_merge_stacked_mesh"],
+        cases=par.cases["overlay_merge_stacked_mesh"], parity="exact")
     kernels[1]["stacked"] = {
         "name": "overlay_merge_stacked", "route": "cuda",
         **k2s, "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": sh["launches"]["overlay_merge_stacked"],
         "max_abs_err": par.err["overlay_merge_stacked"],
         "cases": par.cases["overlay_merge_stacked"], "parity": "exact"}
+    next(k for k in kernels if k["name"] == "overlay_probe")["mesh"] = \
+        mesh.pop("k3")
     lm_parity(dev)
     lm = lm_phase(dev, card, par)
     kernels[0]["lm"] = lm.pop("k1")
@@ -2149,6 +2629,12 @@ def main() -> int:
         f"step {sh['p50_step_ms']} ms, p99 step {sh['p99_step_ms']} ms, "
         f"peak device memory {sh['max_memory_allocated_bytes']} bytes; K1 "
         f"sharded {sh['k1']['ms']} ms (monolithic {kernels[0]['ms']} ms)")
+    log(f"mesh end to end on {card} ({MESH_D} positions of one card): "
+        f"{mesh['steps_per_s']} steps/s, p50 step {mesh['p50_step_ms']} ms, "
+        f"p99 step {mesh['p99_step_ms']} ms, peak device memory "
+        f"{mesh['max_memory_allocated_bytes']} bytes (sharded "
+        f"{sh['max_memory_allocated_bytes']}); restart from a snapshot: "
+        f"{restart['writes_read_back']} acknowledged writes read back")
     log(f"lm end to end on {card}: {lm['tokens_per_s']} tokens/s "
         f"({lm['generated_tokens_per_s']} generated), p50 step "
         f"{lm['p50_step_ms']} ms, p99 step {lm['p99_step_ms']} ms, peak "

@@ -1,6 +1,6 @@
 """Batched device read/write path over a :class:`DeviceIndex` mirror — the
-port of ``src/repro/core/lookup.py:51-740`` on one device: the monolithic
-path (S=1) and the range-sharded one over a :class:`StackedDeviceIndex`.
+port of ``src/repro/core/lookup.py``: the monolithic path (S=1), the
+range-sharded one over a :class:`StackedDeviceIndex`, and its mesh twins.
 
 The mirror lives on one device as the dict that :func:`mirror_from_numpy`
 builds: the pools of ``_STACK_2D + _STACK_3D`` in the layout the K1 kernel
@@ -10,6 +10,10 @@ to int64 and payloads as int64 bits (``core.keys``).  A stacked mirror
 on every pool, plus the boundary table and the cross-shard leaf chain.
 The overlay is one (3, cap) int64 pack: biased keys, payload bits,
 tombstones 0/1.
+
+The mesh twins (``*_mesh``) read a stacked mirror placed on an index mesh
+(``parallel.place_stacked``): each position reads its own shards, and the
+results sum, disjoint, on the mesh's first device.
 
 Point reads and overlay merges dispatch by the tensors' device: on CUDA
 they launch K1 (``fused_lookup``) and K2 (``overlay_merge``), on the CPU
@@ -28,8 +32,11 @@ from ..device import resolve
 from ..kernels.fused_lookup.ops import (KEY_FIELDS, POOL_DTYPES, STALE_STEPS,
                                         TAG_BT, TAG_DATA, TAG_MIXED, TAG_NULL,
                                         TAG_PA, fused_lookup,
-                                        fused_lookup_sharded)
+                                        fused_lookup_sharded,
+                                        fused_lookup_sharded_mesh)
 from ..kernels.overlay_merge.ops import merge_overlay_pack_torch, overlay_merge
+from ..kernels.overlay_probe.ops import overlay_probe
+from ..parallel.index_placement import mesh_local_shards, place_stacked
 from .delta_overlay import DeltaOverlay, UINT64_MAX, merge_overlays, next_pow2
 from .device_index import (_STACK_2D, _STACK_3D, DeviceIndex,
                            StackedDeviceIndex)
@@ -44,7 +51,10 @@ __all__ = ["STALE_STEPS", "TAG_NULL", "TAG_DATA", "TAG_PA", "TAG_BT",
            "scan_batch_overlay", "stacked_device_arrays",
            "upload_shard_slices", "update_stacked_shard",
            "lookup_batch_sharded", "lookup_batch_sharded_overlay",
-           "scan_batch_sharded", "scan_batch_sharded_overlay"]
+           "scan_batch_sharded", "scan_batch_sharded_overlay",
+           "mesh_local_shards", "lookup_batch_sharded_mesh",
+           "lookup_batch_sharded_overlay_mesh", "scan_batch_sharded_mesh",
+           "scan_batch_sharded_overlay_mesh", "update_stacked_shard_mesh"]
 
 # the mirror pools every read path gathers from (the reference's list)
 _DEVICE_FIELDS = [f for f, _ in _STACK_2D + _STACK_3D]
@@ -174,12 +184,7 @@ def _scan_leaf_walk(leaf_keys, leaf_pay, leaf_count, leaf_next, leaf0, q,
     payloads only of the ``count`` entries kept)."""
     L, cap = leaf_keys.shape
     Q = q.shape[0]
-    chain = []
-    leaf = leaf0
-    for _ in range(max_blocks):
-        chain.append(leaf)
-        leaf = torch.where(leaf >= 0, leaf_next[leaf.clamp(0, L - 1)], -1)
-    chain = torch.stack(chain, 1)                       # (Q, B)
+    chain = _walk_chain(leaf_next, leaf0, max_blocks)   # (Q, B)
     rows = chain.clamp(0, L - 1)
     valid = leaf_keys[rows] >= q[:, None, None]         # (Q, B, cap)
     valid &= torch.arange(cap, device=q.device) < leaf_count[rows][..., None]
@@ -189,6 +194,19 @@ def _scan_leaf_walk(leaf_keys, leaf_pay, leaf_count, leaf_next, leaf0, q,
     flat = rows.gather(1, order // cap).long() * cap + order % cap
     return (leaf_keys.reshape(-1)[flat], leaf_pay.reshape(-1)[flat],
             valid.gather(1, order))
+
+
+def _walk_chain(leaf_next: torch.Tensor, leaf0: torch.Tensor,
+                max_blocks: int) -> torch.Tensor:
+    """The ``max_blocks`` rows a scan visits from ``leaf0`` along
+    ``leaf_next`` (-1 past the chain's end): (Q, max_blocks) int32."""
+    L = leaf_next.shape[0]
+    chain = []
+    leaf = leaf0
+    for _ in range(max_blocks):
+        chain.append(leaf)
+        leaf = torch.where(leaf >= 0, leaf_next[leaf.clamp(0, L - 1)], -1)
+    return torch.stack(chain, 1)
 
 
 def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -506,3 +524,159 @@ def scan_batch_sharded_overlay(stk: dict, ovr: dict, q: torch.Tensor,
                                                    height=height,
                                                    max_blocks=max_blocks),
                                pack, q, count, hide)
+
+
+# ----------------------------------------------------------------------- mesh
+# The mesh read path (DESIGN.md §13), the port of ``core/lookup.py:718-1057``
+# of the reference: the stacked pools of a placed stack
+# (``parallel.place_stacked``) lie as one slice of Sl = S / D shards on each
+# mesh position, the boundary table and the cross-shard leaf chain whole on
+# each.  A point read runs K1's shard route once for each position over its
+# own shards (``kernels.fused_lookup.ops.fused_lookup_sharded_mesh``: the
+# twin of both the reference's vmapped ``lookup_batch_sharded_mesh`` and
+# its fused one, whose outputs are the same; the tensors' device picks the
+# kernel or its plain version).  The reference's ``psum`` of disjoint
+# contributions is a sum of the positions' results on the first device.
+# The lane pack and its inverse (``_mesh_lane_pack``, ``_mesh_gather_back``)
+# are K1's window there: the shard route needs one lane row, not (Sl, qcap).
+#
+# No counterpart: ``lookup_batch_sharded_mesh_packed`` and
+# ``mesh_lookup_backend_fns`` are the reference's host-routed path of its jnp
+# backend, and the port has no backend switch (the device picks the path).
+
+
+def lookup_batch_sharded_mesh(mesh, stk: dict, q: torch.Tensor,
+                              height: int = 3, qcap: int | None = None):
+    """Mesh twin of :func:`lookup_batch_sharded`: (payload int64 bits,
+    found bool, global leaf row int32, shard id int32) on the mesh's first
+    device; queries no position owns (the sentinel) return zeros.
+    ``qcap`` bounds the queries a shard owns (the engine's host route): a
+    position reads a window of ``qcap * Sl`` of them."""
+    return fused_lookup_sharded_mesh(mesh, stk, q, height, qcap)
+
+
+def lookup_batch_sharded_overlay_mesh(mesh, stk: dict, ovr: dict,
+                                      q: torch.Tensor, height: int = 3,
+                                      qcap: int | None = None):
+    """Mesh twin of :func:`lookup_batch_sharded_overlay`: the gathered
+    snapshot results merge with the overlay pack on the mesh's first
+    device through ``overlay_probe`` (K3 on the card), the place of the
+    reference's ``_overlay_probe``.  K3 zeroes the payload of a query past
+    the pack; the payload is read only where the query hit, so no output
+    changes.  Returns (payload, found, global leaf row)."""
+    pay, found, gleaf, _ = lookup_batch_sharded_mesh(mesh, stk, q, height,
+                                                     qcap)
+    opay, hit, tomb = overlay_probe(ovr, q)
+    pay = torch.where(hit & ~tomb, opay, pay)
+    found = torch.where(hit, ~tomb, found)
+    return torch.where(found, pay, 0), found, gleaf
+
+
+def _scan_leaf_walk_mesh(mesh, stk: dict, leaf0, q, count: int,
+                         max_blocks: int, Sl: int):
+    """:func:`_scan_leaf_walk` on the mesh: the rows the scans visit are
+    walked once, on the first device over its copy of the replicated
+    ``leaf_next_chain`` (every position would walk the same rows); each
+    position marks the candidates in the rows it holds, and the marks OR
+    on the first device (disjoint: a row lies on one position), which
+    picks the first ``count``; then each position gathers the keys and
+    payloads of the picked entries it holds, and those sum there."""
+    L, cap = stk["leaf_keys"][0].shape[1:]
+    n = Sl * L                                  # rows a position holds
+    dev0, Q = q.device, q.shape[0]
+    walk = _walk_chain(stk["leaf_next_chain"][0], leaf0, max_blocks)
+    valid = torch.zeros((Q, max_blocks * cap), dtype=torch.bool,
+                        device=dev0)
+    walks = []
+    for d, dev in enumerate(mesh.devices):
+        chain = walk.to(dev)
+        mine = (chain >= d * n) & (chain < (d + 1) * n)
+        rows = (chain - d * n).clamp(0, n - 1)
+        v = stk["leaf_keys"][d].reshape(-1, cap)[rows] \
+            >= q.to(dev)[:, None, None]
+        v &= torch.arange(cap, device=dev) \
+            < stk["leaf_count"][d].reshape(-1)[rows][..., None]
+        v &= mine[..., None]
+        valid |= v.reshape(Q, -1).to(dev0)
+        walks.append((mine, rows))
+        del v
+    order = _first_true(valid, count)
+    keys = torch.zeros(order.shape, dtype=torch.int64, device=dev0)
+    pays = torch.zeros_like(keys)
+    for d, (dev, (mine, rows)) in enumerate(zip(mesh.devices, walks)):
+        od = order.to(dev)
+        held = mine.gather(1, od // cap)
+        flat = rows.gather(1, od // cap).long() * cap + od % cap
+        keys += torch.where(held, stk["leaf_keys"][d].reshape(-1)[flat],
+                            0).to(dev0)
+        pays += torch.where(held, stk["leaf_pay"][d].reshape(-1)[flat],
+                            0).to(dev0)
+    return keys, pays, valid.gather(1, order)
+
+
+def scan_batch_sharded_mesh(mesh, stk: dict, q: torch.Tensor,
+                            count: int = 100, height: int = 3,
+                            max_blocks: int | None = None,
+                            qcap: int | None = None):
+    """Mesh twin of :func:`scan_batch_sharded`: the start leaves come from
+    the mesh read, the walk runs on every position over its own rows
+    (:func:`_scan_leaf_walk_mesh`).  Equal to the one-device scan where
+    valid."""
+    S = stk["bounds"][0].shape[0] + 1
+    Sl = mesh_local_shards(S, mesh)
+    cap = stk["leaf_keys"][0].shape[2]
+    if max_blocks is None:
+        # + S: each shard boundary crossed can add one underfull chain leaf
+        max_blocks = count // max(cap // 2, 1) + 2 + S
+    _, _, gleaf, _ = lookup_batch_sharded_mesh(mesh, stk, q, height=height,
+                                               qcap=qcap)
+    return _scan_leaf_walk_mesh(mesh, stk, gleaf, q, count, max_blocks, Sl)
+
+
+def scan_batch_sharded_overlay_mesh(mesh, stk: dict, ovr: dict,
+                                    q: torch.Tensor, count: int = 100,
+                                    height: int = 3,
+                                    max_blocks: int | None = None,
+                                    qcap: int | None = None,
+                                    ov_bound: int | None = None):
+    """Mesh twin of :func:`scan_batch_sharded_overlay` (the same overlay
+    window and two-way merge, on the mesh's first device, over the mesh
+    scan)."""
+    pack = ovr["ov_pack"]
+    cap = pack.shape[1]
+    hide = cap if ov_bound is None else min(int(ov_bound), cap)
+    base = count + hide
+    if max_blocks is not None:
+        leaf_cap = stk["leaf_keys"][0].shape[2]
+        max_blocks = max_blocks + hide // max(leaf_cap // 2, 1) + 1
+    return _overlay_scan_merge(*scan_batch_sharded_mesh(
+        mesh, stk, q, count=base, height=height, max_blocks=max_blocks,
+        qcap=qcap), pack, q, count, hide)
+
+
+def update_stacked_shard_mesh(mesh, stk: dict, sdi: StackedDeviceIndex,
+                              shards: list[int],
+                              dev_slices: dict | None = None) -> dict:
+    """Mesh twin of :func:`update_stacked_shard`: each shard's slices are
+    written IN PLACE into the local pools of the position that holds it
+    (``copy_`` moves a slice uploaded elsewhere); then ``meta``,
+    ``last_leaf_min`` and ``leaf_next_chain`` are placed anew
+    (``parallel.place_stacked``).  The returned dict is new only in those
+    three fields."""
+    assert shards, "update_stacked_shard_mesh needs at least one shard"
+    stk = dict(stk)
+    Sl = mesh_local_shards(sdi.meta.shape[0], mesh)
+    for s in shards:
+        d, local = divmod(s, Sl)
+        up = dev_slices.get(s) if dev_slices is not None else None
+        for f in _DEVICE_FIELDS:
+            row = up[f] if up is not None \
+                else _pool_tensor(f, getattr(sdi, f)[s], mesh.devices[d])
+            stk[f][d][local].copy_(row)
+    cpu = torch.device("cpu")
+    stk.update(place_stacked(
+        {"meta": _pool_tensor("meta", sdi.meta, cpu),
+         "last_leaf_min": _pool_tensor("slot_key", sdi.last_leaf_min, cpu),
+         "leaf_next_chain": _pool_tensor("leaf_next", sdi.leaf_next_chain,
+                                         cpu)}, mesh))
+    return stk

@@ -2,10 +2,13 @@
 version in its ``ops.py`` (the CUDA sources live in ``../csrc``):
 
 * ``fused_lookup``  (K1) — the batched point read, over one mirror or (with
-  its shard route, ``fused_lookup_sharded``) over stacked shard mirrors;
+  its shard route, ``fused_lookup_sharded``) over stacked shard mirrors,
+  launched once a position on an index mesh
+  (``fused_lookup.ops.fused_lookup_sharded_mesh``);
 * ``overlay_merge`` (K2) — the write batch's merge into the overlay pack
   (its per-shard-row form, ``overlay_merge.ops.overlay_merge_stacked``,
-  has no caller until the mesh path);
+  and that form's mesh twin have no caller in the engines, as in the
+  reference);
 * ``overlay_probe`` (K3) — the overlay's verdict per query;
 * ``leaf_search``   (K4) — one row's rank search per query;
 * ``inner_probe``   (K5) — one inner-level resolve per query, and the staged

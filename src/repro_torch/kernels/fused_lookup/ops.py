@@ -10,6 +10,9 @@ stacked ``(S, ...)`` shard mirror (``core.lookup.stacked_device_arrays``),
 the TPU kernel's ``cfg.sharded`` branch; the monolithic mirror is the
 one-shard stack.  Those dicts ARE the kernel's operand layout
 (:data:`POOL_DTYPES`), so there is no operand packing and no operand cache.
+:func:`fused_lookup_sharded_mesh` launches the shard route once for each
+position of an index mesh, over that position's own shards (the
+reference's ``_run_mesh``, ``ops.py:388-476``).
 The kernel stages rows through shared memory; :func:`_stage_plan` sizes
 it from the pools' shapes and raises where a leaf row cannot fit.
 :func:`k1_bytes` is the bytes a launch must move, for its bound.
@@ -26,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from ...core.keys import key_f64
+from ...core.keys import BIASED_MAX, key_f64
+from ...parallel.index_placement import mesh_local_shards
 from .. import _build
 from ..overlay_probe.ops import overlay_probe_plain
 
@@ -385,5 +389,86 @@ def fused_lookup_sharded(stk: dict, ovr: dict | None, q: torch.Tensor,
     return out
 
 
+# ----------------------------------------------------------------------- mesh
+# The mesh form (DESIGN.md §13), the twin of the reference's ``_run_mesh``
+# and ``fused_lookup_batch_sharded_mesh`` (``kernels/fused_lookup/ops.py:
+# 388-476``).  A placed stack (``parallel.place_stacked``) holds, for mesh
+# position d, the pools of its Sl = S / D shards and a copy of the boundary
+# table.  Each position routes the whole batch over that table, compacts the
+# queries it owns into a window, and launches K1's shard route once over
+# its own pools with the window of the table between its shards:
+# ``bounds[d*Sl : d*Sl + Sl - 1]``.  The table is sorted, so for an owned
+# query the kernel's ``count(bounds < q)`` over that window is its local
+# shard id, and at Sl == 1 the window is empty and the kernel routes
+# nothing.  So the reference's boundary planes padded to a common width
+# (``MeshFusedOperands``) have no counterpart here: K1 takes the (Sl-1,)
+# window as it is.  The positions' results go back to their batch slots
+# and sum, disjoint, on the first device (the reference's ``psum``).
+
+
+def _mesh_window(q: torch.Tensor, owned: torch.Tensor, window: int):
+    """A position's window of the batch, the lane pack of the mesh read
+    (the reference's ``_mesh_lane_pack`` with one lane row, as its fused
+    path packs): the owned queries first in batch order (a stable sort),
+    cut to ``window``, the slots past them the never-owned sentinel.
+    Returns (window queries, their batch positions, the slots that hold an
+    owned query)."""
+    order = torch.argsort((~owned).to(torch.uint8), stable=True)[:window]
+    keep = torch.arange(window, device=q.device) < owned.sum()
+    return torch.where(keep, q[order], BIASED_MAX), order, keep
+
+
+def _position(stk: dict, d: int, Sl: int) -> dict:
+    """Mesh position ``d``'s operands: its own pools and the window of its
+    copy of the boundary table between its shards (section comment)."""
+    local = {f: stk[f][d] for f in _KERNEL_POOLS}
+    local["bounds"] = stk["bounds"][d][d * Sl:d * Sl + Sl - 1]
+    return local
+
+
+def fused_lookup_sharded_mesh(mesh, stk: dict, q: torch.Tensor, height: int,
+                              qcap: int | None = None):
+    """Batched point read over a stacked mirror placed on the index mesh
+    ``mesh``: (payload int64 bits, found bool, global leaf row int32, shard
+    id int32) on the device of ``q``, the mesh's first.  Queries no
+    position owns (the sentinel) return zeros.
+
+    ``qcap`` is the per-shard routing bound (the engine's host route): a
+    position's window is ``min(qcap * Sl, Q)`` queries.  Each position
+    calls :func:`fused_lookup_sharded` once: K1 on a CUDA position (counted
+    there and in ``fused_lookup_sharded_mesh.launches``), the plain version
+    on a CPU one."""
+    S = stk["bounds"][0].shape[0] + 1
+    Sl = mesh_local_shards(S, mesh)
+    L = stk["leaf_keys"][0].shape[1]
+    Q, dev0 = q.shape[0], q.device
+    window = Q if qcap is None else min(max(int(qcap) * Sl, 1), Q)
+    pay = torch.zeros(Q, dtype=torch.int64, device=dev0)
+    gleaf = torch.zeros(Q, dtype=torch.int32, device=dev0)
+    sid = torch.zeros(Q, dtype=torch.int32, device=dev0)
+    found = torch.zeros(Q, dtype=torch.int32, device=dev0)
+    before = fused_lookup_sharded.launches
+    for d, dev in enumerate(mesh.devices):
+        qd = q.to(dev)
+        local = torch.searchsorted(stk["bounds"][d], qd) - d * Sl
+        owned = (local >= 0) & (local < Sl) & (qd != BIASED_MAX)
+        qwin, order, keep = _mesh_window(qd, owned, window)
+        p, f, lf, ls = fused_lookup_sharded(_position(stk, d, Sl), None,
+                                            qwin, height)
+        # the leaf row offset in 64 bits, then cut to 32 as the one-device
+        # form's ``sid * L + leaf`` is
+        lf = (lf.to(torch.int64) + d * Sl * L).to(torch.int32)
+        # the gather back: each owned query's results at its batch slot,
+        # summed into the outputs (disjoint: one position owns a query)
+        order = order.to(dev0)
+        for acc, v in ((pay, p), (found, f.to(torch.int32)), (gleaf, lf),
+                       (sid, ls + d * Sl)):
+            acc.index_add_(0, order, torch.where(keep, v, 0).to(dev0))
+    fused_lookup_sharded_mesh.launches += fused_lookup_sharded.launches \
+        - before
+    return pay, found.bool(), gleaf, sid
+
+
 fused_lookup.launches = 0
 fused_lookup_sharded.launches = 0
+fused_lookup_sharded_mesh.launches = 0

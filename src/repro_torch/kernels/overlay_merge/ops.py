@@ -7,11 +7,13 @@ Port of ``src/repro/kernels/overlay_merge/overlay_merge.py`` and
 (:func:`overlay_merge`, the serving engines' write path) merges one (3, Cb)
 batch into one (3, Ca) pack; the stacked form (:func:`overlay_merge_stacked`,
 the reference's ``overlay_merge_pack_stacked``) merges S such rows, each on
-its own, in one launch.  Packs are int64 in overlay layout: biased keys
-(``INT64_MAX`` padding, sorted last), payload bits, tombstones 0/1.  Each
-output row is bit-identical to the reference's ``merge_overlay_pack_jnp``:
-the sorted union, the batch winning key collisions, tombstones kept as
-entries, padding after the last live entry.
+its own, in one launch; :func:`overlay_merge_stacked_mesh` runs it once
+for each position of an index mesh over the position's rows.  Packs are
+int64 in overlay layout: biased keys (``INT64_MAX`` padding, sorted last),
+payload bits, tombstones 0/1.  Each output row is bit-identical to the
+reference's ``merge_overlay_pack_jnp``: the sorted union, the batch winning
+key collisions, tombstones kept as entries, padding after the last live
+entry.
 
 Both forms write either a fresh, fully padded pack or, given ``out``, into
 a target the caller owns (the engines' two packs, ``core.lookup.
@@ -33,6 +35,7 @@ import ctypes
 import torch
 
 from ...core.keys import BIASED_MAX
+from ...parallel.index_placement import mesh_local_shards
 from .. import _build
 
 # the kernel scans a batch's overwrite flags in one block's shared memory
@@ -261,5 +264,37 @@ def overlay_merge_stacked(packs: torch.Tensor, batches: torch.Tensor,
     return target if out is None else fills
 
 
+def overlay_merge_stacked_mesh(mesh, packs: torch.Tensor,
+                               batches: torch.Tensor,
+                               cap_out: int) -> torch.Tensor:
+    """The stacked merge on an index mesh, the twin of the reference's
+    ``overlay_merge_pack_stacked_mesh`` (``ops.py:68-83``): mesh position
+    d merges only its own rows ``[d*Sl, (d+1)*Sl)`` of ``packs`` (S, 3, Ca)
+    and ``batches`` (S, 3, Cb), moved to its device, through
+    :func:`overlay_merge_stacked`; returns new, fully padded (S, 3,
+    cap_out) packs on the device of ``packs``, which a position there
+    merges into directly (its rows of the result) and any other copies its
+    rows back to.  S must be divisible by the mesh's positions.  One K2
+    launch a CUDA position (counted there and in
+    ``overlay_merge_stacked_mesh.launches``); as in the reference, no
+    engine calls it."""
+    Sl = mesh_local_shards(packs.shape[0], mesh)
+    out = torch.empty((packs.shape[0], 3, int(cap_out)), dtype=packs.dtype,
+                      device=packs.device)
+    before = overlay_merge_stacked.launches
+    for d, dev in enumerate(mesh.devices):
+        rows = slice(d * Sl, (d + 1) * Sl)
+        if dev == packs.device:
+            overlay_merge_stacked(packs[rows], batches[rows], cap_out,
+                                  out=out[rows])
+        else:
+            out[rows].copy_(overlay_merge_stacked(
+                packs[rows].to(dev), batches[rows].to(dev), cap_out))
+    overlay_merge_stacked_mesh.launches += overlay_merge_stacked.launches \
+        - before
+    return out
+
+
 overlay_merge.launches = 0
 overlay_merge_stacked.launches = 0
+overlay_merge_stacked_mesh.launches = 0

@@ -31,9 +31,20 @@ overlay.  ``repartition=True`` adds online split/merge under drift
 (DESIGN.md §12) through the same freeze → background build → swap path,
 over a versioned boundary table.
 
-The host logic is the reference's, line for line, without its mesh
-branches (the mesh is a later slice): the engine runs on ``cuda:0`` unless
-built with ``device="cpu"``, where K1's and K2's plain versions serve
+``mesh=`` places the stacked pools on a 1-D index mesh (DESIGN.md §13,
+``repro_torch.parallel.index_mesh``): each position holds only its own
+shards' pool slices, a read launches K1's shard route once for each
+position over its own shards and merges the overlay on the mesh's first
+device (K3), and shard installs, the background compaction and
+repartition swaps included, write into the position that holds the shard.
+Shard slots pad to a device multiple so the leading axis always divides
+the mesh; request semantics are unchanged.  A mesh may name one card more
+than once (``index_mesh``): that exercises the routing, the per-position
+launches and the installs, not copies between cards.
+
+The host logic is the reference's, line for line: the engine runs on
+``cuda:0`` unless built with ``device="cpu"`` (with a mesh: on the mesh's
+first device), where K1's and K2's plain versions serve
 (``stats()["read_backend"]``: ``"cuda"`` or ``"torch"``).  Stacked pool
 installs write in place (``core.lookup.update_stacked_shard``), between
 steps only.
@@ -51,33 +62,55 @@ from ..core.device_index import (build_device_index, install_shard_slices,
                                  pad_shard_slices, rechain_stacked,
                                  refresh_device_index, restack_shard,
                                  stack_device_indexes, stacked_pool_caps)
-from ..core.lookup import (lookup_batch_sharded_overlay, merge_overlay_pack,
-                           overlay_from_numpy, scan_batch_sharded_overlay,
+from ..core.keys import keys_to_tensor
+from ..core.lookup import (lookup_batch_sharded_overlay,
+                           lookup_batch_sharded_overlay_mesh,
+                           merge_overlay_pack, overlay_from_numpy,
+                           scan_batch_sharded_overlay,
+                           scan_batch_sharded_overlay_mesh,
                            stacked_device_arrays, update_stacked_shard,
-                           upload_shard_slices)
+                           update_stacked_shard_mesh, upload_shard_slices)
 from ..core.partition import RangePartition
+from ..device import resolve
+from ..parallel.index_placement import (mesh_num_devices, place_overlay_pack,
+                                        place_stacked)
 from .index_engine import (BaseIndexEngine, IndexRequest, IndexShard,
-                           compaction_executor)
+                           compaction_executor, pad_queries)
 
 
 class ShardedIndexEngine(BaseIndexEngine):
     """Batching engine for mixed get/insert/delete/scan over range shards.
 
     ``device`` defaults to ``cuda:0`` and raises without CUDA; pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    ``device="cpu"`` for the plain PyTorch path.  With ``mesh`` (an
+    ``IndexMesh``) the engine runs on the mesh's first device, and a
+    ``device`` naming another raises."""
 
     def __init__(self, part: RangePartition, *, device=None,
                  gamma: float = 0.05, auto_compact: bool = True,
                  async_compact: bool = True, repartition: bool = False,
                  split_ratio: float = 4.0, min_split_items: int = 128,
-                 repartition_check_every: int = 1,
+                 repartition_check_every: int = 1, mesh=None,
                  overlay_merge: bool = True):
+        if mesh is not None:
+            if device is not None and resolve(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
         super().__init__(device)
         # the tensors' device picks the path: K1's shard route and K2 on
         # cuda, their plain versions on cpu; scans walk in plain PyTorch
         self.read_backend = "cuda" if self.device.type == "cuda" else "torch"
-        self._lookup = lookup_batch_sharded_overlay
-        self._scan = scan_batch_sharded_overlay
+        self.mesh = mesh
+        if mesh is None:
+            self._lookup = lookup_batch_sharded_overlay
+            self._scan = scan_batch_sharded_overlay
+        else:
+            # mesh placement (DESIGN.md §13): reads and installs go through
+            # the per-position twins, and every stack build places its pools
+            self._lookup = self._mesh_lookup_entry
+            self._scan = self._mesh_scan_entry
+        self._route_q = None          # the host keys of the batch in flight
         self.part = part
         self.gamma = gamma
         self.auto_compact = auto_compact
@@ -101,7 +134,7 @@ class ShardedIndexEngine(BaseIndexEngine):
         self.sdi = stack_device_indexes(
             [sh.di for sh in self.shards], part.bounds,
             min_shards=self._shard_slots(len(self.shards)))
-        self.stk = stacked_device_arrays(self.sdi, part.version, self.device)
+        self.stk = self._stacked_arrays(self.sdi, part.version)
         # merged-pack capacity floor ~= sum of shard thresholds: one pack
         # shape across the shards' whole lifetime
         self._ov_floor = next_pow2(
@@ -180,10 +213,35 @@ class ShardedIndexEngine(BaseIndexEngine):
                 self._build_job, s, self.sdi)
 
     def _synchronize(self) -> None:
-        """Block until the device holds what this thread enqueued, so a
+        """Block until the devices hold what this thread enqueued, so a
         background build never hands over half-copied tensors."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        devices = [self.device] if self.mesh is None \
+            else self.mesh.distinct_devices()
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+
+    def _stacked_arrays(self, sdi, version: int = 0) -> dict:
+        """The device stack of ``sdi``; with a mesh, built on the host and
+        placed (``place_stacked``: each position's slice moved once to its
+        device), beside the host copy of its boundary table that
+        ``_mesh_qcap`` routes on."""
+        if self.mesh is None:
+            return stacked_device_arrays(sdi, version, self.device)
+        stk = place_stacked(stacked_device_arrays(sdi, version, "cpu"),
+                            self.mesh)
+        stk["route_bounds"] = np.array(sdi.bounds, dtype=np.uint64)
+        return stk
+
+    def _update_stack(self, changed: list[int],
+                      dev_slices: dict | None = None) -> None:
+        if self.mesh is None:
+            self.stk = update_stacked_shard(self.stk, self.sdi, changed,
+                                            dev_slices=dev_slices)
+        else:
+            self.stk = update_stacked_shard_mesh(self.mesh, self.stk,
+                                                 self.sdi, changed,
+                                                 dev_slices=dev_slices)
 
     def _build_job(self, s: int, sdi):
         """Background build+upload for shard ``s`` (freeze -> build -> upload
@@ -244,8 +302,7 @@ class ShardedIndexEngine(BaseIndexEngine):
                     self._full_restack()
                 else:
                     rechain_stacked(self.sdi)   # once, after all installs
-                    self.stk = update_stacked_shard(
-                        self.stk, self.sdi, changed, dev_slices=dev_slices)
+                    self._update_stack(changed, dev_slices)
                 touched = True
         if self._repart_inflight is not None:
             fut = self._repart_inflight[-1]
@@ -279,8 +336,7 @@ class ShardedIndexEngine(BaseIndexEngine):
             [sh.di for sh in self.shards], self.part.bounds,
             min_shards=self._shard_slots(len(self.shards)),
             min_caps=self._pool_caps())
-        self.stk = stacked_device_arrays(self.sdi, self.part.version,
-                                         self.device)
+        self.stk = self._stacked_arrays(self.sdi, self.part.version)
         self.restacks += 1
 
     def _pool_caps(self):
@@ -296,7 +352,7 @@ class ShardedIndexEngine(BaseIndexEngine):
         fits = [restack_shard(self.sdi, s, rechain=False) for s in changed]
         if all(fits):
             rechain_stacked(self.sdi)   # once, after all re-pads
-            self.stk = update_stacked_shard(self.stk, self.sdi, changed)
+            self._update_stack(changed)
         else:   # a shard outgrew its padded pool capacity: re-stack all
             self._full_restack()
 
@@ -307,12 +363,22 @@ class ShardedIndexEngine(BaseIndexEngine):
         capacity change no stacked shape (DESIGN.md §12).  0 (exact fit)
         when repartitioning is off, preserving the frozen-partition engine's
         layout bit for bit.  Placeholder slots carry UINT64_MAX bounds, so
-        routing never sends a real query to one."""
-        if not self.repartition:
+        routing never sends a real query to one.
+
+        With a mesh, slots also round up to a device multiple so the
+        stacked leading axis always divides the mesh (DESIGN.md §13); the
+        placeholders lie on the last positions."""
+        D = self._mesh_devices()
+        if not self.repartition and D <= 1:
             return 0
-        self._min_slots = max(self._min_slots,
-                              next_pow2(n + max(n // 4, 1)))
+        base = next_pow2(n + max(n // 4, 1)) if self.repartition else n
+        if D > 1:
+            base = -(-base // D) * D
+        self._min_slots = max(self._min_slots, base)
         return self._min_slots
+
+    def _mesh_devices(self) -> int:
+        return mesh_num_devices(self.mesh)
 
     def _maybe_repartition(self) -> None:
         """Load monitor + trigger policy, sampled in ``_begin_step``
@@ -419,7 +485,7 @@ class ShardedIndexEngine(BaseIndexEngine):
         new_sdi = stack_device_indexes(
             new_dis, new_bounds, min_shards=self._shard_slots(len(new_dis)),
             min_caps=self._pool_caps())
-        new_stk = stacked_device_arrays(new_sdi, device=self.device)
+        new_stk = self._stacked_arrays(new_sdi)
         self._synchronize()
         return new_sdi, new_stk
 
@@ -622,6 +688,9 @@ class ShardedIndexEngine(BaseIndexEngine):
         self.write_h2d_bytes += int(pack.nbytes)
         ovr = overlay_from_numpy(pack, self.device, fill=total,
                                  prev=self.ov_arrs)
+        if self.mesh is not None:
+            # replicated once, here: later delta merges run on every copy
+            ovr = place_overlay_pack(ovr, self.mesh)
         self.write_host_s += time.perf_counter() - t0
         return ovr
 
@@ -644,6 +713,12 @@ class ShardedIndexEngine(BaseIndexEngine):
                       self._ov_floor, next_pow2(bound))
         ovr, nbytes = merge_overlay_pack(self.ov_arrs, (bk, bp, bt), cap_out,
                                          bound)
+        if self.mesh is not None:
+            # one merge for each other distinct device's copy (none on a
+            # mesh of one card), then the placed dict is assembled anew
+            ovr["ov_replicas"] = tuple(
+                merge_overlay_pack(r, (bk, bp, bt), cap_out, bound)[0]
+                for r in self.ov_arrs["ov_replicas"])
         self._pack_sig = sig
         self._pack_live = bound
         self.write_h2d_bytes += nbytes
@@ -652,6 +727,41 @@ class ShardedIndexEngine(BaseIndexEngine):
         return ovr
 
     # ------------------------------------------------------------- read path
+    # With a mesh, a tight qcap is the point: each position's K1 window is
+    # Sl * qcap queries, so the pow2-bucketed routing bound below turns
+    # shard locality into less work a position.  The route is taken on the
+    # host keys of the batch (kept by ``_queries``), so it costs no device
+    # sync.  The reference's ``_mesh_route`` also builds the lane matrix of
+    # its host-routed jnp path, which the port does not have.
+    def _queries(self, keys: list[int]) -> torch.Tensor:
+        self._route_q = pad_queries(keys)
+        return keys_to_tensor(self._route_q, self.device)
+
+    def _mesh_qcap(self, snap: dict) -> int:
+        """Pow2-bucketed per-shard routing bound of the batch in flight,
+        routed on the SNAPSHOT's boundary table (during an in-flight
+        repartition the pinned snapshot may trail ``self.sdi``; routing and
+        traversal must agree)."""
+        qn = self._route_q
+        real = qn != UINT64_MAX
+        if not real.any():
+            return min(8, qn.shape[0])
+        bounds = snap["route_bounds"]
+        sid = np.searchsorted(bounds, qn[real], side="left")
+        mx = int(np.bincount(sid, minlength=bounds.shape[0] + 1).max())
+        return min(next_pow2(max(mx, 8)), qn.shape[0])
+
+    def _mesh_lookup_entry(self, snap, ovr, q, height: int = 3):
+        return lookup_batch_sharded_overlay_mesh(
+            self.mesh, snap, ovr, q, height=height,
+            qcap=self._mesh_qcap(snap))
+
+    def _mesh_scan_entry(self, snap, ovr, q, count: int = 100,
+                         height: int = 3, ov_bound=None):
+        return scan_batch_sharded_overlay_mesh(
+            self.mesh, snap, ovr, q, count=count, height=height,
+            ov_bound=ov_bound, qcap=self._mesh_qcap(snap))
+
     def _snap(self) -> dict:
         return self.stk
 
@@ -672,6 +782,7 @@ class ShardedIndexEngine(BaseIndexEngine):
         return {
             **super().stats(),
             "read_backend": self.read_backend,
+            "mesh_devices": self._mesh_devices(),
             "num_shards": self.num_shards,
             "overlay_len": sum(sh.overlay_live() for sh in self.shards),
             "compactions": self.compactions,

@@ -440,6 +440,118 @@ def _same(got, exp):
         assert torch.equal(g, e)
 
 
+# ------------------------------------------------------------- the mesh
+MESH_DEVICES = (1, 2, 4)
+
+
+@pytest.mark.parametrize("D", MESH_DEVICES)
+def test_fused_lookup_mesh_matches_plain(cuda, D):
+    """K1 once a position over a stack placed on a mesh naming cuda:0 D
+    times == the same mesh read on the CPU (the plain version) and == the
+    one-device shard route: found and payload where the query is real
+    (the sentinel, 2**64 - 1, is owned by no position and reads zeros),
+    leaf rows where found, shard ids where real; the mesh scans alike
+    where valid."""
+    from repro_torch.parallel import index_mesh, place_stacked
+    keys, stk, h, _ = _k1_case(cuda, "512b", "s6of8")     # 8 slots
+    rng = np.random.default_rng(D)
+    qn = np.sort(_queries(keys, rng))
+    q = keys_to_tensor(qn, cuda)
+    real = torch.from_numpy(qn != UM).to(cuda)
+    mesh = index_mesh(D, devices=[cuda] * D)
+    placed = place_stacked(stk, mesh)
+    assert placed["leaf_keys"][0].data_ptr() == stk["leaf_keys"].data_ptr()
+    cpu_placed = place_stacked({f: v.cpu() if torch.is_tensor(v) else v
+                                for f, v in stk.items()},
+                               index_mesh(D, devices=["cpu"] * D))
+    one = k1.fused_lookup_sharded(stk, None, q, h)
+    for qcap in (None, 600, len(qn)):
+        n = k1.fused_lookup_sharded_mesh.launches
+        got = k1.fused_lookup_sharded_mesh(mesh, placed, q, h, qcap)
+        assert k1.fused_lookup_sharded_mesh.launches == n + D
+        plain = k1.fused_lookup_sharded_mesh(
+            index_mesh(D, devices=["cpu"] * D), cpu_placed, q.cpu(), h, qcap)
+        _same(got, [t.to(cuda) for t in plain])
+        if qcap == 600:
+            continue            # a window below some position's load
+        assert torch.equal(got[0][real], one[0][real])
+        assert torch.equal(got[1][real], one[1][real])
+        assert not got[1][~real].any() and not got[0][~real].any()
+        assert torch.equal(got[2][got[1]], one[2][got[1]])
+        assert torch.equal(got[3][real], one[3][real])
+    empty = k1.fused_lookup_sharded_mesh(mesh, placed, q[:0], h, 8)
+    assert all(t.shape == (0,) for t in empty)
+    kb, vb, mb = port.scan_batch_sharded(stk, q[:256], count=40, height=h)
+    km, vm, mm = port.scan_batch_sharded_mesh(mesh, placed, q[:256],
+                                              count=40, height=h)
+    torch.cuda.synchronize()
+    assert torch.equal(mb, mm)
+    assert torch.equal(kb[mb], km[mb]) and torch.equal(vb[mb], vm[mb])
+
+
+@pytest.mark.parametrize("D", MESH_DEVICES)
+def test_overlay_merge_stacked_mesh_matches_plain(cuda, D):
+    """K2's stacked form once a position == the one-launch stacked form ==
+    its plain version, on 8 rows of every kind."""
+    from repro_torch.parallel import index_mesh
+    rng = np.random.default_rng(40 + D)
+    pool = rng.choice(2**60, size=40_000, replace=False).astype(np.uint64)
+    rows = [(_pack(rng, [], 2048), _pack(rng, pool[:40], 64)),
+            (_pack(rng, pool[:64], 2048), _pack(rng, pool[:64], 64)),
+            (_pack(rng, pool[:2000], 2048), _pack(rng, pool[1990:2030], 64)),
+            (_pack(rng, pool[:100], 2048), _pack(rng, [], 64))] * 2
+    pa = torch.stack([port.overlay_from_numpy(a, cuda)["ov_pack"]
+                      for a, _ in rows])
+    pb = torch.stack([port.overlay_from_numpy(b, cuda)["ov_pack"]
+                      for _, b in rows])
+    n = k2.overlay_merge_stacked_mesh.launches
+    got = k2.overlay_merge_stacked_mesh(index_mesh(D, devices=[cuda] * D),
+                                        pa, pb, 4096)
+    assert k2.overlay_merge_stacked_mesh.launches == n + D
+    _same([got], [k2.overlay_merge_stacked(pa, pb, 4096)])
+    _same([got], [k2.merge_overlay_stacked_torch(pa.cpu(), pb.cpu(),
+                                                 4096).to(cuda)])
+
+
+@pytest.mark.parametrize("D", MESH_DEVICES)
+def test_mesh_engine_on_card_matches_cpu(cuda, D):
+    """The mesh engine on cuda:0 named D times == the one-device engine on
+    the CPU, request for request, with K1 launched D times a read batch."""
+    from repro_torch.core import partition_bulkload
+    from repro_torch.parallel import index_mesh
+    from repro_torch.serving import ShardedIndexEngine
+    keys = make_dataset("osm", 6_000, seed=2)
+    rng = np.random.default_rng(5)
+    trace = []
+    for _ in range(6):
+        fresh = rng.integers(1, 2**60, 40, dtype=np.uint64)
+        trace.append([("insert", int(k), int(k) % 91) for k in fresh]
+                     + [("delete", int(k)) for k in rng.choice(keys, 10)]
+                     + [("get", int(k)) for k in rng.choice(keys, 60)]
+                     + [("get", int(k)) for k in fresh[:10]]
+                     + [("scan", int(k), 0, 50) for k in rng.choice(keys, 4)])
+    outs = []
+    for mesh in (None, index_mesh(D, devices=[cuda] * D)):
+        part = partition_bulkload(keys, payloads_for(keys), 3,
+                                  cfg=AulidConfig(**GEOMS["512b"]))
+        eng = ShardedIndexEngine(part, mesh=mesh, gamma=0.02,
+                                 async_compact=False,
+                                 device="cpu" if mesh is None else None)
+        n = k1.fused_lookup_sharded_mesh.launches
+        outs.append([(r.op, r.key, tuple(r.result)
+                      if isinstance(r.result, list) else r.result)
+                     for step in trace for r in _step(eng, step)])
+    assert outs[0] == outs[1]
+    assert k1.fused_lookup_sharded_mesh.launches == n + 2 * D * len(trace)
+    assert eng.stats()["mesh_devices"] == D
+
+
+def _step(eng, step):
+    reqs = [eng.submit(*args) for args in step]
+    eng.step()
+    return reqs
+
+
 EDGES = np.array([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**64 - 2, UM],
                  dtype=np.uint64)
 
