@@ -137,8 +137,25 @@ printed):
    shuffled 4096-page pool), float32 and bfloat16: held to its plain
    version (a row of length 0 and one of every token included), timed like
    K1 beside its plain version and ``scaled_dot_product_attention`` on the
-   same KV gathered contiguous (the gather not timed); then the
-   ``kernels`` line (K6's long-context numbers, its served ones under
+   same KV gathered contiguous (the gather not timed);
+9. the contiguous-cache path (``models.model.prefill`` / ``decode_step``
+   through ``launch.steps.make_prefill_step`` / ``make_decode_step``): (a)
+   on the card == on the CPU on tiny float32 configs of gemma2-9b (int8
+   cache, a window shorter than the prompt, softcaps), qwen1.5-32b (int8,
+   qkv biases) and qwen2-moe-a2.7b (shared experts); (b) qwen3-4b at full
+   width in float32, 4 rows of 64 positions, the same tokens through
+   ``decode_step`` over a contiguous cache and ``paged_decode_step`` over
+   shuffled pages (K1 translating, K6 attending; their launches read
+   around exactly this run), logits within 1e-4 and greedy tokens equal at
+   >= 90%; (c)-(e) full width, random weights: gemma2-9b (2 rows, a
+   32,768-deep int8 cache, prompts of 16,384 tokens in 16 query chunks,
+   32 decode steps), qwen2-moe-a2.7b (8 rows, 4096 deep, prompts of 2048,
+   32 steps) and qwen1.5-32b last (70.4 GB of bfloat16 weights; 1 row,
+   2048 deep, a prompt of 1024, 8 steps), each with layer 0's cache rows
+   held bit for bit to its k/v recomputed (``_quant``'s codes and scales
+   for int8) and decode after a prefill of S-1 tokens held to the forward
+   over S (cosine > 0.95); prefill and decode tokens/s, p50/p99 step ms,
+   peak memory; then the ``kernels`` line (K6's long-context numbers, its served ones under
    ``served``; K1's shard route under K1's ``sharded`` and its launches on
    the mesh path under ``mesh``; K2's stacked form under K2's ``stacked``,
    its mesh form under that entry's ``mesh``; K3 on the mesh path under
@@ -222,6 +239,22 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # and the served shape: 8 rows of 89-96 tokens over the engine's pool
 K6_ROWS, K6_NP, K6_POOL = 16, 256, 4096
 K6_SERVED_ROWS, K6_SERVED_LENS = 8, (89, 96)
+# phase 9, the contiguous-cache path: (a) card == CPU on tiny configs,
+# (b) paged == contiguous on qwen3-4b at full width, (c)-(e) full-width runs
+CONTIG_TINY = ("gemma2-9b", "qwen1.5-32b", "qwen2-moe-a2.7b")
+CONTIG_TOL = 1e-4                # (a): logits, float32 on both devices
+# (a) at a step where an int8 code of the new token parted (one step of
+# one k or v entry moved a reduced gemma2 stack's hidden state by 9.7e-4 in
+# tests/test_torch_contiguous.py)
+CONTIG_FLIP_TOL = 2e-3
+PAGED_ROWS, PAGED_STEPS, PAGED_PAGE = 4, 64, 16
+PAGED_TOL = 1e-4                 # (b): logits, float32 pool and cache
+# arch -> (rows, cache depth, prompt, decode steps, consistency check's S);
+# run in this order, qwen1.5-32b's 70.4 GB of weights last
+FULL_RUNS = {"gemma2-9b": (2, 32768, 16384, 32, 4608),
+             "qwen2-moe-a2.7b": (8, 4096, 2048, 32, 256),
+             "qwen1.5-32b": (1, 2048, 1024, 8, 1024)}
+COSINE_MIN = 0.95                # tests/test_models.py's prefill == decode
 
 
 # K2's bound: 24 bytes (key, payload, tombstone) for each of these
@@ -2544,6 +2577,357 @@ def k6_timing(dev, card: str, par: Parity, launches: int) -> dict:
             "cases": par.cases["paged_attention"]}
 
 
+# ------------------------------------------------------------------- phase 9
+def _tiny_contiguous(arch: str):
+    """A float32 reduced config of ``arch`` with a window shorter than the
+    prompt (gemma2), nonzero qkv biases (qwen1.5) and a float32 cache
+    where the config's is bfloat16, so both devices store the same k/v."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    kw = dict(compute_dtype="float32", sliding_window=min(
+        cfg.sliding_window, 32))
+    if cfg.kv_cache_dtype != "int8":
+        kw["kv_cache_dtype"] = "float32"
+    return dataclasses.replace(cfg, **kw)
+
+
+def _codes_parted(got: dict, exp: dict, what: str) -> int:
+    """The int8 codes of ``got`` that differ from ``exp``'s: each by at most
+    one, at <= 0.1% of a cache (a value at a rounding boundary may round
+    either way); the float entries within CONTIG_TOL."""
+    import torch
+    parted = 0
+    for k, e in exp.items():
+        g = got[k].cpu()
+        if e.dtype == torch.int8:
+            d = (g.int() - e.int()).abs()
+            parted += int((d > 0).sum())
+            if int(d.max()) > 1 or float((d > 0).float().mean()) > 1e-3:
+                raise AssertionError(f"{what}: {k} codes differ")
+        elif not torch.allclose(g, e, atol=CONTIG_TOL, rtol=CONTIG_TOL):
+            raise AssertionError(f"{what}: {k} cache differs")
+    return parted
+
+
+def contiguous_parity(dev) -> dict:
+    """(a) The port's ``prefill`` and ``decode_step`` through the step
+    functions on the card (their default device) == on the CPU, on tiny
+    configs of CONTIG_TINY: the prefill on the same tokens, then each of 8
+    greedy decode steps on the CPU's cache (copied to the card), so both
+    quantize only the new token.  Logits within CONTIG_TOL, or within
+    CONTIG_FLIP_TOL at a step where an int8 code of the new token parted;
+    equal greedy tokens; the caches as ``_codes_parted`` holds them."""
+    import copy
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    out = {}
+    for arch in CONTIG_TINY:
+        cfg = _tiny_contiguous(arch)
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        for name, p in cpu.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+                p.normal_(generator=gen)
+        models = {"cpu": cpu, None: copy.deepcopy(cpu).to(dev)}   # None: cuda:0
+        B, S, n = 3, 48, 8
+        toks = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        logits, caches = {}, {}
+        for d, model in models.items():
+            logits[d], caches[d] = make_prefill_step(cfg, d)(
+                model, {"tokens": toks},
+                M.init_zeros(M.cache_specs(cfg, B, S + n), d))
+        decodes = {d: make_decode_step(cfg, d) for d in models}
+        worst, parted = 0.0, 0
+        for t in range(n + 1):
+            a, b = logits["cpu"], logits[None].cpu()
+            now = _codes_parted(caches[None], caches["cpu"], arch)
+            parted += now
+            tol = CONTIG_FLIP_TOL if now else CONTIG_TOL
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.allclose(b, a, atol=tol, rtol=CONTIG_TOL) \
+                    or not torch.equal(a.argmax(-1), b.argmax(-1)):
+                raise AssertionError(f"contiguous {arch}: card != CPU at "
+                                     f"step {t}")
+            if t == n:
+                break
+            tok = a.argmax(-1).to(torch.int32)[:, None]
+            pos = np.full(B, S + t)
+            caches[None] = {k: v.to(dev) for k, v in caches["cpu"].items()}
+            for d, model in models.items():
+                logits[d], _, caches[d], _ = decodes[d](model, tok, pos,
+                                                        caches[d], {})
+        out[arch] = {"max_logit_diff": worst, "int8_codes_parted": parted,
+                     "kv_cache_dtype": cfg.kv_cache_dtype}
+    log(f"contiguous parity (tiny float32 configs, a prefill of 48 tokens "
+        f"and 8 decode steps, card == CPU: logits within {CONTIG_TOL} "
+        f"({CONTIG_FLIP_TOL} at a step that parted an int8 code), equal "
+        "greedy tokens): " + json.dumps(out))
+    return out
+
+
+def paged_vs_contiguous(dev, card: str) -> dict:
+    """(b) qwen3-4b at full width in float32: the same tokens through
+    ``decode_step`` over a contiguous cache and through
+    ``paged_decode_step`` over a page table of shuffled physical pages
+    (``LearnedPageTable``: K1 translates each step's table, K6 attends),
+    PAGED_ROWS rows of PAGED_STEPS positions.  Logits within PAGED_TOL,
+    greedy tokens equal at >= 90% of (row, step), as the reference's
+    ``TestPagedDecode`` holds them; K1/K6 launch counts read around exactly
+    this run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_lookup.ops import fused_lookup
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.models import model as M
+    from repro_torch.serving import LearnedPageTable, PagePool
+    from repro_torch.serving.paged_model import (init_page_pool,
+                                                 paged_decode_step)
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    B, n, page = PAGED_ROWS, PAGED_STEPS, PAGED_PAGE
+    NP = n // page
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                          dev)
+    cache = M.init_zeros(M.cache_specs(cfg, B, n), dev)
+    rng = np.random.default_rng(5)
+    table = LearnedPageTable(PagePool(B * NP + 3), dev)
+    order = rng.permutation(B * NP)         # allocation order: shuffled pages
+    for i in order:
+        table.alloc_page(1 + int(i) // NP, int(i) % NP)
+    seqs = np.repeat(np.arange(1, B + 1), NP)
+    lps = np.tile(np.arange(NP), B)
+    exp = np.array([table.translate(int(a), int(b)) for a, b in
+                    zip(seqs, lps)])
+    pool = init_page_pool(cfg, B * NP + 3, page, dev)
+    toks = rng.integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+    fused_lookup.launches = 0
+    paged_attention.launches = 0
+    worst, agree = 0.0, []
+    for t in range(n):
+        pos = np.full((B,), t, np.int64)
+        tables = table.translate_batch(seqs, lps)
+        if not np.array_equal(tables.cpu().numpy(), exp):
+            raise AssertionError("paged: translate_batch (K1) != the host "
+                                 "index")
+        dense, _, cache, _ = M.decode_step(cfg, model, toks[:, t:t + 1], pos,
+                                           cache, None)
+        paged, _ = paged_decode_step(
+            cfg, model, toks[:, t:t + 1], pos, pool,
+            tables.reshape(B, NP).to(torch.int32), page)
+        worst = max(worst, float((paged - dense).abs().max()))
+        agree.append(float((paged.argmax(-1) == dense.argmax(-1)).float()
+                           .mean()))
+    launches = {"fused_lookup": fused_lookup.launches,
+                "paged_attention": paged_attention.launches}
+    out = {"card": card, "arch": LM_ARCH, "rows": B, "steps": n,
+           "page_size": page, "max_logit_diff": worst,
+           "greedy_agreement": float(np.mean(agree)), "launches": launches}
+    log(f"paged == contiguous at full width (tolerance {PAGED_TOL}): "
+        + json.dumps(out))
+    if worst > PAGED_TOL or out["greedy_agreement"] < 0.9:
+        raise AssertionError("paged decode != contiguous decode")
+    if launches != {"fused_lookup": n, "paged_attention": n * cfg.n_layers}:
+        raise AssertionError(f"paged == contiguous: launches {launches}")
+    del model, cache, pool
+    return out
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-9)
+                  ).min())
+
+
+def _check_quant(cfg, model, toks, cache, dev) -> str:
+    """The cache rows a prefill wrote for layer 0 == its k/v recomputed here
+    (``_quant``'s codes and scales for an int8 cache), bit for bit."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _project_qkv, _quant
+    from repro_torch.models.common import apply_rope, rms_norm
+    p = model.layers[0]
+    x = M._embed_in(cfg, model, {"tokens": toks}, dev)
+    B, S = toks.shape
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    _, k, v = _project_qkv(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps))
+    k = apply_rope(k, positions, cfg.rope_theta)
+    for name, t in (("k", k), ("v", v)):
+        if cfg.kv_cache_dtype == "int8":
+            q, sc = _quant(t)
+            same = torch.equal(cache[name][0, :, :S], q) and torch.equal(
+                cache[f"{name}_scale"][0, :, :S], sc)
+        else:
+            same = torch.equal(cache[name][0, :, :S],
+                               t.to(cache[name].dtype))
+        if not same:
+            raise AssertionError(f"{cfg.name}: layer 0's {name} cache rows "
+                                 "differ from the prompt's recomputed k/v")
+    return ("_quant codes and scales" if cfg.kv_cache_dtype == "int8"
+            else cfg.kv_cache_dtype + " k/v") + " of layer 0, bit for bit"
+
+
+def _consistency(cfg, model, S: int, dev) -> dict:
+    """Greedy decode at position S-1 after a prefill of S-1 tokens == the
+    forward over S tokens (tests/test_models.py's check: per-row cosine >
+    COSINE_MIN; the moe family dropless, as there, and in float32: in
+    bfloat16 a near-tie between a token's 4th and 5th of 60 experts routes
+    the two paths apart, cosine 0.9895 and 0.9388 in two runs)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts),
+                                  compute_dtype="float32")
+    B = 1 if cfg.family == "dense" else 2
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S))
+    with torch.no_grad():
+        x, _, _ = M.forward(cfg, model, {"tokens": toks})
+        full = M._head(cfg, model, x[:, -1:])[:, 0]
+    del x
+    cache = M.init_zeros(M.cache_specs(cfg, B, S), dev)
+    _, cache = M.prefill(cfg, model, {"tokens": toks[:, :S - 1]}, cache)
+    dec, _, _, _ = M.decode_step(cfg, model, toks[:, S - 1:], np.full(B, S - 1),
+                                 cache, None)
+    cos = _cosine(dec, full)
+    if not cos > COSINE_MIN or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name}: prefill + decode != forward "
+                             f"(cosine {cos})")
+    return {"rows": B, "S": S, "cosine_min": cos,
+            "max_abs_diff": float((dec - full).abs().max()),
+            "same_greedy": bool(torch.equal(dec.argmax(-1), full.argmax(-1)))}
+
+
+def _device_profile(fn, n: int) -> dict:
+    """Device time by kernel over ``n`` calls of ``fn`` (``torch.profiler``,
+    outside the timed run): device ms a call, the device's busy share of
+    their wall time (which the profiler itself slows), kernels a call and
+    the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in rows)
+    return {"calls": n, "wall_ms": wall / n * 1e3,
+            "device_ms": total / n / 1e3, "device_busy_share": total / 1e6
+            / wall, "kernels": sum(e.count for e in rows) / n,
+            "top_kernels": [{"name": e.key[:70], "calls": e.count // n,
+                             "ms": dev_us(e) / n / 1e3}
+                            for e in sorted(rows, key=dev_us,
+                                            reverse=True)[:6]]}
+
+
+def full_width_run(arch: str, dev, card: str) -> dict:
+    """One config of FULL_RUNS at full width, as configured (random weights
+    from a seeded ``torch.Generator``): a prefill of the rows' prompts into
+    the cache through ``make_prefill_step``, then greedy decode steps
+    through ``make_decode_step``, each step timed to its synchronize; the
+    cache rows checked against layer 0's recomputed k/v, and the
+    prefill/forward consistency; prefill and decode tokens/s, p50/p99 step
+    ms and the peak device memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _q_chunk
+    B, s_max, prompt, n, S_check = FULL_RUNS[arch]
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = int(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                          dev)
+    cache = M.init_zeros(M.cache_specs(cfg, B, s_max), dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (B, prompt))
+    t = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    step_s = []
+    for i in range(n):
+        t = time.perf_counter()
+        logits, nxt, cache, _ = decode(model, tok, np.full(B, prompt + i),
+                                       cache, {})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        tok = nxt[:, None]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: non-finite logits at step {i}")
+    peak = int(torch.cuda.max_memory_allocated())
+    step_s = np.asarray(step_s)
+    quant = _check_quant(cfg, model, toks, cache, dev)
+    # where the time goes: the prefill once more (it rewrites the same
+    # rows), then 2 more decode steps past the timed ones
+    prof = {"prefill": _device_profile(
+        lambda: prefill(model, {"tokens": toks}, cache), 1)}
+    at = iter(range(prompt + n, prompt + n + 2))
+    prof["decode"] = _device_profile(
+        lambda: decode(model, tok, np.full(B, next(at)), cache, {}), 2)
+    del cache, logits
+    torch.cuda.empty_cache()
+    cons = _consistency(cfg, model, S_check, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"card": card, "arch": arch, "params": n_params,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "kv_cache_dtype": cfg.kv_cache_dtype, "rows": B,
+           "cache_depth": s_max, "prompt": prompt, "decode_steps": n,
+           "prefill_q_chunk": _q_chunk(cfg, prompt),
+           "setup_s": setup_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": B * prompt / prefill_s,
+           "decode_tokens_per_s": B * n / float(step_s.sum()),
+           "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+           "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+           "first_step_ms": float(step_s[0]) * 1e3,
+           "allocated_before_bytes": before,
+           "max_memory_allocated_bytes": peak,
+           "cache_checked": quant, "consistency": cons, "profile": prof}
+    log(f"full width {arch} on {card}: " + json.dumps(out))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def contiguous_phase(dev, card: str) -> dict:
+    """Phase 9: (a) card == CPU, (b) paged == contiguous at full width,
+    (c)-(e) the FULL_RUNS configs at full width, each freed before the
+    next."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"parity": contiguous_parity(dev),
+           "paged": paged_vs_contiguous(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = {arch: full_width_run(arch, dev, card) for arch in FULL_RUNS}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2615,6 +2999,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(k6_timing(dev, card, par,
                              lm["launches"]["paged_attention"]))
+    contig = contiguous_phase(dev, card)
     for k in kernels:
         k["ptxas"] = ptxas[k["name"]]
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
@@ -2638,7 +3023,20 @@ def main() -> int:
     log(f"lm end to end on {card}: {lm['tokens_per_s']} tokens/s "
         f"({lm['generated_tokens_per_s']} generated), p50 step "
         f"{lm['p50_step_ms']} ms, p99 step {lm['p99_step_ms']} ms, peak "
-        f"device memory {lm['max_memory_allocated_bytes']} bytes; total "
+        f"device memory {lm['max_memory_allocated_bytes']} bytes")
+    paged = contig["paged"]
+    log(f"lm paged == contiguous on {card}: {LM_ARCH} at full width, "
+        f"logits within {paged['max_logit_diff']}, greedy agreement "
+        f"{paged['greedy_agreement']}, launches {paged['launches']}")
+    for arch, r in contig["runs"].items():
+        log(f"lm contiguous {arch} on {card}: prefill "
+            f"{r['prefill_tokens_per_s']} tokens/s ({r['rows']} x "
+            f"{r['prompt']}), decode {r['decode_tokens_per_s']} tokens/s, "
+            f"p50 step {r['p50_step_ms']} ms, p99 step {r['p99_step_ms']} "
+            f"ms, peak device memory {r['max_memory_allocated_bytes']} "
+            f"bytes, prefill/decode cosine "
+            f"{r['consistency']['cosine_min']}")
+    log(f"phase 9 {contig['seconds']:.3f} s; total "
         f"{time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""The LM substrate of the port: the dense family's parameters and layers,
-as ``nn.Module``s whose parameter names equal the reference's keys."""
+"""The LM substrate of the port: the dense and moe families' parameters
+and layers, as ``nn.Module``s whose parameter names equal the reference's
+keys, and their contiguous-cache forward, prefill and decode steps
+(``model``)."""
 from .model import (DenseLM, init_params, numpy_from_params, param_specs,
                     params_from_numpy)
 

@@ -1046,6 +1046,57 @@ def test_serve_engine_on_card_matches_cpu(cuda, trace):
     assert len(engines[1].completed) == len(reqs)
 
 
+@pytest.mark.parametrize("arch,kv", [("qwen3-4b", "float32"),
+                                     ("gemma2-9b", "int8"),
+                                     ("qwen2-moe-a2.7b", "float32")])
+def test_contiguous_decode_on_card_matches_cpu(cuda, arch, kv):
+    """``prefill`` then 6 ``decode_step``s through the step functions on the
+    card == on the CPU, tiny float32 configs with a float32 or int8 cache
+    (gemma2: its 16-token window shorter than the prompt, softcaps;
+    qwen2-moe: shared experts, whose combine the card sums with atomics):
+    equal greedy tokens, logits within 1e-4, int8 codes within one at <=
+    0.1% of the cache."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(
+        get_config(arch).reduced(), n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=96, vocab_size=128,
+        compute_dtype="float32", kv_cache_dtype=kv,
+        sliding_window=16 if arch == "gemma2-9b" else 0)
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": cpu_model, cuda: copy.deepcopy(cpu_model).to(cuda)}
+    B, S = 3, 24
+    toks = np.random.default_rng(1).integers(0, 128, (B, S)).astype(np.int32)
+    out = {}
+    for dev, model in models.items():
+        cache = M.init_zeros(M.cache_specs(cfg, B, S + 6), dev)
+        logits, cache = make_prefill_step(cfg, dev)(model, {"tokens": toks},
+                                                    cache)
+        decode = make_decode_step(cfg, dev)
+        steps = [logits]
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        for t in range(6):
+            logits, nxt, cache, _ = decode(model, tok, np.full(B, S + t),
+                                           cache, {})
+            steps.append(logits)
+            tok = nxt[:, None]
+        out[dev] = ([x.cpu() for x in steps], {k: v.cpu()
+                                               for k, v in cache.items()})
+    (a, ca), (b, cb) = out["cpu"], out[cuda]
+    for x, y in zip(a, b):
+        torch.testing.assert_close(y, x, atol=1e-4, rtol=1e-4)
+        assert torch.equal(y.argmax(-1), x.argmax(-1))
+    for k in ca:
+        if ca[k].dtype == torch.int8:
+            d = (cb[k].int() - ca[k].int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+        else:
+            torch.testing.assert_close(cb[k], ca[k], atol=1e-4, rtol=1e-4)
+
+
 # ------------------------------------------------------------ the sharded path
 def _stack(cuda, name, live, slots, n=50_000):
     from repro_torch.core import partition_bulkload

@@ -65,7 +65,7 @@ def test_configs_are_the_references():
         assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
             ref_config(name).reduced())
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gemma2-9b")
+        get_config("rwkv6-1.6b")
 
 
 def test_rms_norm():
@@ -184,7 +184,27 @@ def test_full_width_qwen3_4b_sizes():
     assert np.prod(specs["embed"]) + np.prod(specs["lm_head"]) == 777_912_320
 
 
+def _n_params(specs: dict) -> int:
+    return sum(jax.tree.leaves(jax.tree.map(
+        lambda s: int(np.prod(s)), specs, is_leaf=lambda s: isinstance(
+            s, tuple))))
+
+
+@pytest.mark.parametrize("name,n", [("gemma2-9b", 10_159_209_984),
+                                    ("qwen1.5-32b", 35_197_096_960),
+                                    ("qwen2-moe-a2.7b", 14_315_587_584)])
+def test_full_width_sizes(name, n):
+    """Parameters of the other full-width configs the port serves, counted
+    from the specs with nothing allocated, equal to the reference's."""
+    specs = M.param_specs(get_config(name))
+    assert _n_params(specs) == n
+    ref = jax.tree.map(lambda s: s.shape,
+                       ref_model.param_specs(ref_config(name)),
+                       is_leaf=lambda s: isinstance(s, ref_model.Spec))
+    assert specs == ref
+
+
 def test_other_families_are_refused():
-    cfg = dataclasses.replace(get_config("qwen3-4b"), family="moe")
+    cfg = dataclasses.replace(get_config("qwen3-4b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.DenseLM(cfg)
