@@ -155,7 +155,32 @@ printed):
    held bit for bit to its k/v recomputed (``_quant``'s codes and scales
    for int8) and decode after a prefill of S-1 tokens held to the forward
    over S (cosine > 0.95); prefill and decode tokens/s, p50/p99 step ms,
-   peak memory; then the ``kernels`` line (K6's long-context numbers, its served ones under
+   peak memory;
+10. the ssm, hybrid, audio and vlm families on the contiguous path
+   (``families_phase``, plain PyTorch, no kernel): (a) ``forward``,
+   ``prefill`` and 4 ``decode_step``s on the card == on the CPU for
+   float32 reduced configs of rwkv6-1.6b, zamba2-1.2b, musicgen-medium and
+   llama-3.2-vision-11b (logits, caches with the vlm's xk/xv, float32
+   states within 1e-4, 2e-3 for rwkv6 and zamba2; bfloat16 shift and conv
+   rows equal or one ulp apart); (b) each at full width and depth (seeded
+   random float32 weights), freed before the next: rwkv6's chunked forward
+   over 8 x 4096 tokens and greedy decode from a zero state at 128 rows
+   (32 steps) and 1 (8); zamba2's long_500k uncut (1 row, its 7-row
+   shared-attention cache 524,288 deep filled with seeded bfloat16 values,
+   8 steps at positions 524,280-524,287), then a prefill of 2 x 4096 into
+   8192 and 32 steps; musicgen (2 x 8192 seeded bfloat16 frames into
+   16,384, 32 steps on token ids) and the vlm (2 x 8192 tokens with 1601
+   seeded patches into 16,384, 32 steps); each with prefill and decode
+   tokens/s, p50/p99 step ms, device ms and kernels a step
+   (``_device_profile``) and peak memory; (c) the cache rows of attention
+   row 0 (zamba2's shared block) and the vlm's xk/xv bit for bit, and the
+   decoded logits against the forward's: S-1 prefilled and the last
+   decoded (audio: frames equal to the tokens' embedding rows; vlm: with
+   patches; S = 256; cosine > 0.95), or every position decoded from a zero
+   state (ssm, hybrid; S = 64) in float32 with a float32 cache and rows
+   (cosine > 0.9999; the configured bfloat16 run's cosine recorded: its
+   roundings grow through the random deep stack); then the ``kernels``
+   line (K6's long-context numbers, its served ones under
    ``served``; K1's shard route under K1's ``sharded`` and its launches on
    the mesh path under ``mesh``; K2's stacked form under K2's ``stacked``,
    its mesh form under that entry's ``mesh``; K3 on the mesh path under
@@ -168,6 +193,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -255,6 +281,40 @@ FULL_RUNS = {"gemma2-9b": (2, 32768, 16384, 32, 4608),
              "qwen2-moe-a2.7b": (8, 4096, 2048, 32, 256),
              "qwen1.5-32b": (1, 2048, 1024, 8, 1024)}
 COSINE_MIN = 0.95                # tests/test_models.py's prefill == decode
+# phase 10, the ssm, hybrid, audio and vlm families on the contiguous path:
+# (a) card == CPU on float32 reduced configs, 4 decode steps
+FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "musicgen-medium",
+                "llama-3.2-vision-11b")
+FAMILY_STEPS = 4
+# (a) rwkv6 and zamba2 part further than CONTIG_TOL where an op amplifies
+# float32 summation order (tests/test_torch_families.py): rwkv6's ln_x
+# group norm at a head whose bonus term nearly cancels (mean(out^2) below
+# its eps of 1e-6, gain up to 1000), zamba2's exp(cum_t - cum_s) of two
+# float32 cumulative sums carried through 12 layers (3.8e-4 on the CPU)
+FAMILY_TOL = {"rwkv6-1.6b": 2e-3, "zamba2-1.2b": 2e-3,
+              "musicgen-medium": CONTIG_TOL,
+              "llama-3.2-vision-11b": CONTIG_TOL}
+# (b) full width: rwkv6's forward over 8 x 4096 (prefill_32k cut from 32 x
+# 32,768), decode at decode_32k's 128 rows and long_500k's 1; zamba2's
+# long_500k uncut (its 7-row shared-attention cache 524,288 deep) and a
+# prefill of 2 x 4096 into 8192; musicgen and the vlm 2 rows of 8192 into
+# 16,384, the vlm with 1601 patches; (c) decode-all-positions length
+RWKV_FORWARD = (8, 4096)
+RWKV_DECODE = ((128, 32), (1, 8))            # (rows, steps)
+ZAMBA_LONG = (1, 524_288, 8)                 # (rows, cache depth, steps)
+ZAMBA_PREFILL = (2, 8192, 4096, 32)          # (rows, depth, prompt, steps)
+AV_RUN = (2, 16_384, 8192, 32)               # musicgen, vlm
+FAMILY_CONSISTENCY_S = {"ssm": 64, "hybrid": 64, "audio": 256, "vlm": 256}
+# (c) the recurrent families in float32 with float32 rows and cache (rwkv6
+# at full width on one H100: 0.99999996-0.99999999 over S = 32 and 64)
+RECURRENT_F32_MIN = 0.9999
+# (c) as configured (bfloat16), the decode's distance from the float32
+# forward, 1 - cosine, at most this many times the bfloat16 forward's plus
+# RECURRENT_BF16_SLACK: both paths round the same values to bfloat16 in
+# other orders (tests/test_torch_family_decode.py holds the reference and
+# the port to it at full depth on the CPU)
+RECURRENT_BF16_RATIO = 1.5
+RECURRENT_BF16_SLACK = 0.01
 
 
 # K2's bound: 24 bytes (key, payload, tombstone) for each of these
@@ -2742,19 +2802,23 @@ def _cosine(a, b) -> float:
                   ).min())
 
 
-def _check_quant(cfg, model, toks, cache, dev) -> str:
-    """The cache rows a prefill wrote for layer 0 == its k/v recomputed here
-    (``_quant``'s codes and scales for an int8 cache), bit for bit."""
+def _check_quant(cfg, model, batch: dict, cache, dev) -> str:
+    """The cache rows a prefill of ``batch`` wrote for attention row 0 ==
+    its k/v recomputed here (``_quant``'s codes and scales for an int8
+    cache), bit for bit: layer 0's, or zamba2's shared block's; and the
+    vlm's cross k/v == ``cross_kv`` of the patches, every cross layer."""
     import torch
     from repro_torch.models import model as M
-    from repro_torch.models.attention import _project_qkv, _quant
+    from repro_torch.models.attention import _project_qkv, _quant, cross_kv
     from repro_torch.models.common import apply_rope, rms_norm
-    p = model.layers[0]
-    x = M._embed_in(cfg, model, {"tokens": toks}, dev)
-    B, S = toks.shape
+    blk = (model.extras["shared_attn"] if cfg.family == "hybrid"
+           else model.layers[0])
+    ln = blk.ln if cfg.family == "hybrid" else blk.ln1
+    x = M._embed_in(cfg, model, batch, dev)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
-    _, k, v = _project_qkv(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps))
+    _, k, v = _project_qkv(cfg, blk.attn, rms_norm(x, ln, cfg.norm_eps))
     k = apply_rope(k, positions, cfg.rope_theta)
     for name, t in (("k", k), ("v", v)):
         if cfg.kv_cache_dtype == "int8":
@@ -2765,10 +2829,21 @@ def _check_quant(cfg, model, toks, cache, dev) -> str:
             same = torch.equal(cache[name][0, :, :S],
                                t.to(cache[name].dtype))
         if not same:
-            raise AssertionError(f"{cfg.name}: layer 0's {name} cache rows "
+            raise AssertionError(f"{cfg.name}: row 0's {name} cache rows "
                                  "differ from the prompt's recomputed k/v")
-    return ("_quant codes and scales" if cfg.kv_cache_dtype == "int8"
-            else cfg.kv_cache_dtype + " k/v") + " of layer 0, bit for bit"
+    what = ("_quant codes and scales" if cfg.kv_cache_dtype == "int8"
+            else cfg.kv_cache_dtype + " k/v") + " of attention row 0"
+    if "xk" in cache:
+        memory = M._floats(batch["patches"], dev).to(x.dtype)
+        for j, cp in enumerate(model.extras["cross"]):
+            k, v = cross_kv(cfg, cp.attn, memory)
+            if not (torch.equal(cache["xk"][j], k.to(cache["xk"].dtype))
+                    and torch.equal(cache["xv"][j],
+                                    v.to(cache["xv"].dtype))):
+                raise AssertionError(f"{cfg.name}: cross row {j}'s xk/xv "
+                                     "differ from cross_kv of the patches")
+        what += f" and xk/xv of {len(model.extras['cross'])} cross layers"
+    return what + ", bit for bit"
 
 
 def _consistency(cfg, model, S: int, dev) -> dict:
@@ -2779,22 +2854,14 @@ def _consistency(cfg, model, S: int, dev) -> dict:
     the two paths apart, cosine 0.9895 and 0.9388 in two runs)."""
     import dataclasses
     import torch
-    from repro_torch.models import model as M
     if cfg.family == "moe":
         cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts),
                                   compute_dtype="float32")
     B = 1 if cfg.family == "dense" else 2
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S))
-    with torch.no_grad():
-        x, _, _ = M.forward(cfg, model, {"tokens": toks})
-        full = M._head(cfg, model, x[:, -1:])[:, 0]
-    del x
-    cache = M.init_zeros(M.cache_specs(cfg, B, S), dev)
-    _, cache = M.prefill(cfg, model, {"tokens": toks[:, :S - 1]}, cache)
-    dec, _, _, _ = M.decode_step(cfg, model, toks[:, S - 1:], np.full(B, S - 1),
-                                 cache, None)
+    full, dec = _decoded_last(cfg, model, {"tokens": toks}, toks, dev)
     cos = _cosine(dec, full)
-    if not cos > COSINE_MIN or not bool(torch.isfinite(dec).all()):
+    if not cos > COSINE_MIN:
         raise AssertionError(f"{cfg.name}: prefill + decode != forward "
                              f"(cosine {cos})")
     return {"rows": B, "S": S, "cosine_min": cos,
@@ -2866,19 +2933,10 @@ def full_width_run(arch: str, dev, card: str) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     tok = logits.argmax(-1).to(torch.int32)[:, None]
-    step_s = []
-    for i in range(n):
-        t = time.perf_counter()
-        logits, nxt, cache, _ = decode(model, tok, np.full(B, prompt + i),
-                                       cache, {})
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        tok = nxt[:, None]
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{arch}: non-finite logits at step {i}")
+    step_s, tok, cache, _ = _steps_timed(decode, model, B, tok, prompt, n,
+                                         cache, {}, arch)
     peak = int(torch.cuda.max_memory_allocated())
-    step_s = np.asarray(step_s)
-    quant = _check_quant(cfg, model, toks, cache, dev)
+    quant = _check_quant(cfg, model, {"tokens": toks}, cache, dev)
     # where the time goes: the prefill once more (it rewrites the same
     # rows), then 2 more decode steps past the timed ones
     prof = {"prefill": _device_profile(
@@ -2892,16 +2950,12 @@ def full_width_run(arch: str, dev, card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     out = {"card": card, "arch": arch, "params": n_params,
            "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
-           "kv_cache_dtype": cfg.kv_cache_dtype, "rows": B,
-           "cache_depth": s_max, "prompt": prompt, "decode_steps": n,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
+           "cache_depth": s_max, "prompt": prompt,
            "prefill_q_chunk": _q_chunk(cfg, prompt),
            "setup_s": setup_s, "prefill_s": prefill_s,
            "prefill_tokens_per_s": B * prompt / prefill_s,
-           "decode_tokens_per_s": B * n / float(step_s.sum()),
-           "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
-           "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
-           "first_step_ms": float(step_s[0]) * 1e3,
-           "allocated_before_bytes": before,
+           **_step_stats(step_s, B), "allocated_before_bytes": before,
            "max_memory_allocated_bytes": peak,
            "cache_checked": quant, "consistency": cons, "profile": prof}
     log(f"full width {arch} on {card}: " + json.dumps(out))
@@ -2928,7 +2982,443 @@ def contiguous_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 10
+def _same_rows(got: dict, exp: dict, tol: float, what: str) -> float:
+    """A cache or state on the card == the CPU's: float entries within
+    ``tol`` (rtol CONTIG_TOL); each bfloat16 entry equal or one ulp apart,
+    or within ``tol`` (the float32 value it rounds parted by that much).
+    Returns the largest float difference."""
+    import torch
+    from repro_torch.models.common import bf16_near
+    worst = 0.0
+    for k, e in exp.items():
+        g = got[k].cpu()
+        if g.dtype == torch.bfloat16:
+            if not bf16_near(g, e, tol):
+                raise AssertionError(f"{what}: bfloat16 {k} rows differ")
+        else:
+            worst = max(worst, float((g.float() - e.float()).abs().max()))
+            if not torch.allclose(g.float(), e.float(), atol=tol,
+                                  rtol=CONTIG_TOL):
+                raise AssertionError(f"{what}: {k} differs")
+    return worst
+
+
+def _family_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """Seeded inputs on ``dev``: token ids, or the audio stub's frames in
+    the compute dtype; and the vlm's patches in the compute dtype."""
+    import torch
+    from repro_torch.models.common import dtype_of
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cdt = dtype_of(cfg.compute_dtype)
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((B, S, cfg.d_model), generator=g,
+                                    device=dev).to(cdt)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                      generator=g, device=dev)
+    if cfg.cross_attn_period:
+        out["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                     generator=g, device=dev).to(cdt)
+    return out
+
+
+def families_parity(dev) -> dict:
+    """(a) The four families' ``forward``, ``prefill`` and 4 greedy
+    ``decode_step``s through the step functions on the card (their default
+    device) == on the CPU, on float32 reduced configs (a float32 KV cache)
+    with the same seeded inputs: forward hidden states, prefill logits and
+    caches (the vlm's xk/xv included), each decode step from the CPU's
+    cache and state (copied to the card): logits, the float32 states
+    (wkv, ssm) within FAMILY_TOL, the bfloat16 shift and conv rows equal or
+    one ulp apart."""
+    import copy
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = _tiny_contiguous(arch)
+        tol = FAMILY_TOL[arch]
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        models = {"cpu": cpu, None: copy.deepcopy(cpu).to(dev)}
+        B, S = 3, 64
+        batch = _family_batch(cfg, B, S, 2, "cpu")
+        fw = {d: M.forward(cfg, m, batch, device=d)[0].cpu()
+              for d, m in models.items()}
+        worst = {"forward": float((fw[None] - fw["cpu"]).abs().max())}
+        if not torch.allclose(fw[None], fw["cpu"], atol=tol,
+                              rtol=CONTIG_TOL):
+            raise AssertionError(f"families {arch}: forward card != CPU")
+        logits, caches, states = {}, {}, {}
+        for d, model in models.items():
+            logits[d], caches[d] = make_prefill_step(cfg, d)(
+                model, batch, M.init_zeros(M.cache_specs(
+                    cfg, B, S + FAMILY_STEPS), d))
+            states[d] = M.init_zeros(M.state_specs(cfg, B), d)
+        worst["cache"] = _same_rows(caches[None], caches["cpu"], tol,
+                                    f"families {arch} prefill")
+        decodes = {d: make_decode_step(cfg, d) for d in models}
+        worst["logits"], worst["state"] = 0.0, 0.0
+        for t in range(FAMILY_STEPS + 1):
+            a, b = logits["cpu"], logits[None].cpu()
+            worst["logits"] = max(worst["logits"],
+                                  float((a - b).abs().max()))
+            if not torch.allclose(b, a, atol=tol, rtol=CONTIG_TOL):
+                raise AssertionError(f"families {arch}: card != CPU at "
+                                     f"step {t}")
+            if t:
+                worst["state"] = max(worst["state"], _same_rows(
+                    states[None], states["cpu"], tol,
+                    f"families {arch} step {t}"))
+            if t == FAMILY_STEPS:
+                break
+            tok = a.argmax(-1).to(torch.int32)[:, None]
+            pos = np.full(B, S + t)
+            caches[None] = {k: v.to(dev, copy=True)
+                            for k, v in caches["cpu"].items()}
+            states[None] = {k: v.to(dev, copy=True)
+                            for k, v in states["cpu"].items()}
+            for d, model in models.items():
+                logits[d], _, caches[d], states[d] = decodes[d](
+                    model, tok, pos, caches[d], states[d])
+        out[arch] = {"tolerance": tol, "max_abs_diff": worst,
+                     "state": sorted(states["cpu"]),
+                     "cache": sorted(caches["cpu"])}
+    log(f"families parity (float32 reduced configs, a prefill of 64 "
+        f"positions and {FAMILY_STEPS} decode steps, card == CPU): "
+        + json.dumps(out))
+    return out
+
+
+def _steps_timed(decode, model, B: int, tok, pos0: int, n: int, cache,
+                 state, what: str):
+    """``n`` greedy decode steps from position ``pos0``, each timed to its
+    synchronize.  Returns (step seconds, the last next-token column,
+    cache, state)."""
+    import torch
+    times = []
+    for i in range(n):
+        t = time.perf_counter()
+        logits, nxt, cache, state = decode(model, tok, np.full(B, pos0 + i),
+                                           cache, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        tok = nxt[:, None]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what}: non-finite logits at step {i}")
+    return np.asarray(times), tok, cache, state
+
+
+def _step_stats(step_s: np.ndarray, B: int) -> dict:
+    return {"rows": B, "decode_steps": len(step_s),
+            "decode_tokens_per_s": B * len(step_s) / float(step_s.sum()),
+            "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+            "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+            "first_step_ms": float(step_s[0]) * 1e3}
+
+
+def _decoded_last(cfg, model, batch: dict, toks, dev, f32_rows=False):
+    """The forward's last logits and the decoded ones: every position
+    from a zero state (ssm, hybrid: their prefill does not seed it, as in
+    the reference), or the last after a prefill of S-1 (audio, vlm).
+    ``f32_rows``: the state's shift and conv rows in float32."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import model as M
+    B, S = toks.shape
+    with torch.no_grad():
+        x, _, _ = M.forward(cfg, model, batch)
+        full = M._head(cfg, model, x[:, -1:])[:, 0]
+    del x
+    specs = M.state_specs(cfg, B)
+    if f32_rows:
+        specs = {k: (shape, "float32") for k, (shape, _) in specs.items()}
+    cache = M.init_zeros(M.cache_specs(cfg, B, S), dev)
+    state = M.init_zeros(specs, dev)
+    decode = make_decode_step(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        for t in range(S):
+            dec, _, cache, state = decode(model, toks[:, t:t + 1],
+                                          np.full(B, t), cache, state)
+    else:
+        pre = {k: (v if k == "patches" else v[:, :S - 1])
+               for k, v in batch.items()}
+        _, cache = M.prefill(cfg, model, pre, cache)
+        dec, _, _, _ = decode(model, toks[:, S - 1:], np.full(B, S - 1),
+                              cache, state)
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decoded logits")
+    return full, dec
+
+
+def _family_consistency(cfg, model, dev) -> dict:
+    """(c) At full width, the decoded last logits against the forward's
+    (``_decoded_last``; audio: frames equal to the compute-dtype embedding
+    rows of the tokens).  Audio and vlm, as configured: cosine >
+    COSINE_MIN.  The ssm and hybrid families decode every position, and
+    each bfloat16 rounding of a carried value (the shift and conv rows, a
+    bfloat16 cache, bfloat16 compute) grows through the random deep stack:
+    at full depth on the CPU the reference's own bfloat16 decode parts from
+    its forward to cosine 0.66 (zamba2; tests/test_torch_family_decode.py).
+    So they are held twice: in float32 compute with a float32 cache and
+    float32 rows, decode against forward, cosine > RECURRENT_F32_MIN; and
+    as configured, the decode no farther from that float32 forward than
+    the configured forward is (RECURRENT_BF16_RATIO, _SLACK)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.common import dtype_of
+    B, S = 2, FAMILY_CONSISTENCY_S[cfg.family]
+    batch = _family_batch(cfg, B, S, 9, dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(10))
+    if cfg.family == "audio":
+        batch["frames"] = model.embed[toks].to(dtype_of(cfg.compute_dtype))
+    elif "tokens" in batch:
+        batch["tokens"] = toks
+    full, dec = _decoded_last(cfg, model, batch, toks, dev)
+    out = {"rows": B, "S": S, "cosine_min": _cosine(dec, full),
+           "max_abs_diff": float((dec - full).abs().max()),
+           "same_greedy": bool(torch.equal(dec.argmax(-1),
+                                           full.argmax(-1)))}
+    if cfg.family in ("ssm", "hybrid"):
+        f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                  kv_cache_dtype="float32")
+        full32, dec32 = _decoded_last(f32, model, batch, toks, dev, True)
+        out["float32"] = {"cosine_min": _cosine(dec32, full32),
+                          "max_abs_diff": float((dec32 - full32).abs().max())}
+        if not out["float32"]["cosine_min"] > RECURRENT_F32_MIN:
+            raise AssertionError(f"{cfg.name}: float32 decode != forward "
+                                 f"({out['float32']})")
+        out["to_float32"] = {"forward": _cosine(full, full32),
+                             "decode": _cosine(dec, full32)}
+        far = {k: 1 - c for k, c in out["to_float32"].items()}
+        if not far["decode"] <= (RECURRENT_BF16_RATIO * far["forward"]
+                                 + RECURRENT_BF16_SLACK):
+            raise AssertionError(f"{cfg.name}: bfloat16 decode farther from "
+                                 f"float32 than the forward ({out})")
+    elif not out["cosine_min"] > COSINE_MIN:
+        raise AssertionError(f"{cfg.name}: decode != forward ({out})")
+    return out
+
+
+def _family_model(arch: str, dev):
+    """The config at full width and its model, random weights from a seeded
+    ``torch.Generator`` on the card (``init_params``'s rules)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                          dev)
+    return cfg, model
+
+
+def _prefill_timed(prefill, model, batch: dict, cache: dict):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(model, batch, cache)
+    torch.cuda.synchronize()
+    return logits, cache, time.perf_counter() - t
+
+
+def _run_line(arch: str, card: str, out: dict, t0: float) -> dict:
+    import torch
+    out = {"card": card, "arch": arch, **out,
+           "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+           "seconds": time.perf_counter() - t0}
+    log(f"family {arch} on {card}: " + json.dumps(out))
+    return out
+
+
+def rwkv_run(dev, card: str) -> dict:
+    """rwkv6-1.6b at full width: the chunked forward (``make_prefill_step``
+    with its empty cache) over RWKV_FORWARD rows x tokens; greedy decode
+    from a zero state at each RWKV_DECODE (rows, steps); one prefill and 2
+    decode steps profiled; (c)."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    arch = "rwkv6-1.6b"
+    cfg, model = _family_model(arch, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    B, S = RWKV_FORWARD
+    batch = _family_batch(cfg, B, S, 12, dev)
+    logits, _, pre_s = _prefill_timed(prefill, model, batch, {})
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "forward_rows": B, "forward_tokens": S, "prefill_s": pre_s,
+           "prefill_tokens_per_s": B * S / pre_s,
+           "profile": {"prefill": _device_profile(
+               lambda: prefill(model, batch, {}), 1)}}
+    del batch, logits
+    for rows, n in RWKV_DECODE:
+        state = M.init_zeros(M.state_specs(cfg, rows), dev)
+        tok = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+        step_s, tok, _, state = _steps_timed(decode, model, rows, tok, 0, n,
+                                             {}, state, arch)
+        at = iter(range(n, n + 2))
+        out[f"decode_{rows}"] = {
+            **_step_stats(step_s, rows),
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in state.values()),
+            "profile": _device_profile(lambda: decode(
+                model, tok, np.full(rows, next(at)), {}, state), 2)}
+        del state
+    out["consistency"] = _family_consistency(cfg, model, dev)
+    return _run_line(arch, card, out, t0)
+
+
+def zamba_run(dev, card: str) -> dict:
+    """zamba2-1.2b at full width: long_500k uncut (1 row, the shared
+    block's 7-row cache ZAMBA_LONG deep filled with seeded random bfloat16
+    values, greedy decode at the last positions from a zero state), freed;
+    then a prefill of 2 x 4096 into an 8192-deep cache (row 0 of the
+    shared block's cache checked) and greedy decode; profiles; (c)."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    arch = "zamba2-1.2b"
+    cfg, model = _family_model(arch, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {"params": sum(p.numel() for p in model.parameters())}
+    B, depth, n = ZAMBA_LONG
+    cache = M.init_zeros(M.cache_specs(cfg, B, depth), dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for t in cache.values():
+        t.normal_(generator=g)
+    state = M.init_zeros(M.state_specs(cfg, B), dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    step_s, tok, cache, state = _steps_timed(decode, model, B, tok,
+                                             depth - n, n, cache, state, arch)
+    at = iter([depth - 2, depth - 1])
+    out["long_500k"] = {
+        **_step_stats(step_s, B), "cache_depth": depth,
+        "positions": [depth - n, depth - 1],
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in cache.values()),
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "profile": _device_profile(lambda: decode(
+            model, tok, np.full(B, next(at)), cache, state), 2)}
+    del cache, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, depth, prompt, n = ZAMBA_PREFILL
+    batch = _family_batch(cfg, B, prompt, 14, dev)
+    cache = M.init_zeros(M.cache_specs(cfg, B, depth), dev)
+    logits, cache, pre_s = _prefill_timed(prefill, model, batch, cache)
+    checked = _check_quant(cfg, model, batch, cache, dev)
+    state = M.init_zeros(M.state_specs(cfg, B), dev)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    step_s, tok, cache, state = _steps_timed(decode, model, B, tok, prompt,
+                                             n, cache, state, arch)
+    at = iter(range(prompt + n, prompt + n + 2))
+    out["prefill"] = {
+        **_step_stats(step_s, B), "cache_depth": depth, "prompt": prompt,
+        "prefill_s": pre_s, "prefill_tokens_per_s": B * prompt / pre_s,
+        "cache_checked": checked,
+        "profile": {"prefill": _device_profile(
+            lambda: prefill(model, batch, cache), 1),
+            "decode": _device_profile(lambda: decode(
+                model, tok, np.full(B, next(at)), cache, state), 2)}}
+    del cache, state, batch, logits
+    torch.cuda.empty_cache()
+    out["consistency"] = _family_consistency(cfg, model, dev)
+    return _run_line(arch, card, out, t0)
+
+
+def av_run(arch: str, dev, card: str) -> dict:
+    """musicgen-medium or llama-3.2-vision-11b at full width: AV_RUN rows
+    of seeded bfloat16 frames (musicgen) or tokens with seeded patches (the
+    vlm) prefilled into the cache, then greedy decode on token ids; the
+    cache checked (attention row 0; the vlm's xk/xv); profiles; (c)."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    cfg, model = _family_model(arch, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    B, depth, prompt, n = AV_RUN
+    batch = _family_batch(cfg, B, prompt, 15, dev)
+    cache = M.init_zeros(M.cache_specs(cfg, B, depth), dev)
+    logits, cache, pre_s = _prefill_timed(prefill, model, batch, cache)
+    checked = _check_quant(cfg, model, batch, cache, dev)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    step_s, tok, cache, _ = _steps_timed(decode, model, B, tok, prompt, n,
+                                         cache, {}, arch)
+    at = iter(range(prompt + n, prompt + n + 2))
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           **_step_stats(step_s, B), "cache_depth": depth, "prompt": prompt,
+           "prefill_s": pre_s, "prefill_tokens_per_s": B * prompt / pre_s,
+           "cache_checked": checked,
+           "profile": {"prefill": _device_profile(
+               lambda: prefill(model, batch, cache), 1),
+               "decode": _device_profile(lambda: decode(
+                   model, tok, np.full(B, next(at)), cache, {}), 2)}}
+    del cache, batch, logits
+    torch.cuda.empty_cache()
+    out["consistency"] = _family_consistency(cfg, model, dev)
+    return _run_line(arch, card, out, t0)
+
+
+def _family_summary(r: dict) -> dict:
+    """A run's headline numbers: tokens/s, step ms, device ms and kernels a
+    step, peak memory, consistency cosine."""
+    def one(d: dict) -> dict:
+        keep = ("rows", "prefill_tokens_per_s", "decode_tokens_per_s",
+                "p50_step_ms", "p99_step_ms", "max_memory_allocated_bytes")
+        got = {k: d[k] for k in keep if k in d}
+        prof = d.get("profile", {})
+        prof = prof.get("decode", prof) if "decode" in prof or \
+            "device_ms" in prof else {}
+        if prof:
+            got["decode_device_ms"] = prof["device_ms"]
+            got["decode_kernels"] = prof["kernels"]
+        return got
+    out = one(r)
+    for k in ("decode_128", "decode_1", "long_500k", "prefill"):
+        if k in r:
+            out[k] = one(r[k])
+    out["consistency_cosine"] = r["consistency"]["cosine_min"]
+    out["seconds"] = r["seconds"]
+    if "float32" in r["consistency"]:
+        out["consistency_cosine_float32"] = \
+            r["consistency"]["float32"]["cosine_min"]
+        out["cosine_to_float32"] = r["consistency"]["to_float32"]
+    return out
+
+
+def families_phase(dev, card: str) -> dict:
+    """Phase 10: (a) card == CPU, then the four families at full width
+    (b) with their consistency checks (c), each run freed before the
+    next."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"parity": families_parity(dev), "runs": {}}
+    out["runs"]["rwkv6-1.6b"] = rwkv_run(dev, card)
+    out["runs"]["zamba2-1.2b"] = zamba_run(dev, card)
+    for arch in ("musicgen-medium", "llama-3.2-vision-11b"):
+        gc.collect()
+        out["runs"][arch] = av_run(arch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
+    # phase 10's vlm prefill holds 40.4 GB of weights and a 17.2 GB float32
+    # logits tensor a layer: without expandable segments the caching
+    # allocator splits the freed blocks and runs out at 68 GB in use
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3000,6 +3490,7 @@ def main() -> int:
     kernels.append(k6_timing(dev, card, par,
                              lm["launches"]["paged_attention"]))
     contig = contiguous_phase(dev, card)
+    fam = families_phase(dev, card)
     for k in kernels:
         k["ptxas"] = ptxas[k["name"]]
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
@@ -3036,7 +3527,10 @@ def main() -> int:
             f"ms, peak device memory {r['max_memory_allocated_bytes']} "
             f"bytes, prefill/decode cosine "
             f"{r['consistency']['cosine_min']}")
-    log(f"phase 9 {contig['seconds']:.3f} s; total "
+    for arch, r in fam["runs"].items():
+        log(f"lm family {arch} on {card}: " + json.dumps(_family_summary(r)))
+    log(f"phase 9 {contig['seconds']:.3f} s; phase 10 "
+        f"{fam['seconds']:.3f} s; total "
         f"{time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

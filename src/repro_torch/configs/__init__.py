@@ -1,19 +1,21 @@
-"""Architecture registry of the port: the configs its serving path runs.
+"""Architecture registry of the port — port of
+``src/repro/configs/__init__.py``: the same ten configs, one module each
+(the dense, moe, ssm, hybrid, audio and vlm families).
 
-Port of ``src/repro/configs/__init__.py`` over the dense family (qwen3-4b,
-qwen3-8b, gemma2-9b, qwen1.5-32b) and the moe family (granite-moe-1b-a400m,
-qwen2-moe-a2.7b); the other four configs come with their families (ROADMAP
-Queue 1 item 9.5).  ``get_config(name)`` raises ``KeyError`` for an
-unknown id, as the reference does.
+``get_config(name)`` resolves an architecture id (``--arch``) to its
+ModelConfig and raises ``KeyError`` for an unknown id, as the reference
+does.
 """
 from .base import LONG_CONTEXT_ARCHS, SHAPES, ModelConfig, ShapeConfig, shapes_for
-from . import (gemma2_9b, granite_moe_1b, qwen1p5_32b, qwen2_moe_a2p7b,
-               qwen3_4b, qwen3_8b)
+from . import (gemma2_9b, granite_moe_1b, llama32_vision_11b, musicgen_medium,
+               qwen1p5_32b, qwen2_moe_a2p7b, qwen3_4b, qwen3_8b, rwkv6_1p6b,
+               zamba2_1p2b)
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [
-        qwen3_4b.CONFIG, gemma2_9b.CONFIG, qwen3_8b.CONFIG, qwen1p5_32b.CONFIG,
-        granite_moe_1b.CONFIG, qwen2_moe_a2p7b.CONFIG,
+        zamba2_1p2b.CONFIG, qwen3_4b.CONFIG, gemma2_9b.CONFIG, qwen3_8b.CONFIG,
+        qwen1p5_32b.CONFIG, granite_moe_1b.CONFIG, qwen2_moe_a2p7b.CONFIG,
+        rwkv6_1p6b.CONFIG, musicgen_medium.CONFIG, llama32_vision_11b.CONFIG,
     ]
 }
 

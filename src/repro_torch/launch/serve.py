@@ -7,7 +7,9 @@ config, plus ``--device``).
 
 It runs on the card unless ``--device`` names another device.  The weights
 are random, drawn from a ``torch.Generator`` seeded 0 on that device (not
-the reference's ``jax.random`` numbers).
+the reference's ``jax.random`` numbers).  The paged step serves the text
+stack of the attention families (dense, moe, audio, vlm); the ssm and
+hybrid families are refused, with the reference's message.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ def main(argv=None):
     cfg = dataclasses.replace(
         get_config(args.arch).reduced(), n_layers=2, d_model=128, n_heads=4,
         n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256, remat=False)
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
+        raise SystemExit(f"paged serving demo targets attention archs, "
+                         f"not {cfg.family}")
     dev = resolve(args.device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     eng = ServeEngine(cfg, model, slots=args.slots, page_size=args.page_size,

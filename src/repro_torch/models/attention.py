@@ -1,15 +1,15 @@
-"""Attention: GQA with qk-norm / bias / softcap / sliding window, over the
-whole sequence (train/prefill) and for one new token against a contiguous
-KV cache (decode) — port of ``src/repro/models/attention.py:28-154,
-197-275``.  The paged decode path (``serving.paged_model``) attends through
-the K6 kernel instead and uses only the projection.
+"""Attention: GQA with qk-norm / bias / softcap / sliding window /
+cross-attention, over the whole sequence (train/prefill), for one new token
+against a contiguous KV cache (decode), and against frontend-stub memory
+(cross) — port of ``src/repro/models/attention.py``.  The paged decode path
+(``serving.paged_model``) attends through the K6 kernel instead and uses
+only the projection.
 
 The reference's sharding hooks are the identity on one device and are
 dropped: ``shard_acts`` (its activation constraints) and the
 ``attn_seq_shard`` branch (q rows kept on their seq shard).  The reference
 scans the query chunks of a long sequence; the port loops over them in
-Python.  Cross-attention (``cross_attention``, ``cross_kv``) comes with the
-vlm family (ROADMAP Queue 1 item 9.5).
+Python.
 
 The cache is updated IN PLACE (the reference updates it functionally and
 returns the new dict; the port returns the same dict).  Shapes:
@@ -28,8 +28,10 @@ from ..configs.base import ModelConfig
 from .common import apply_rope, register_params, rms_norm
 
 
-def attn_param_specs(cfg: ModelConfig) -> dict:
-    """name -> (shape, logical_axes)."""
+def attn_param_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """name -> (shape, logical_axes); a cross-attention layer's are the
+    same.  ``cross`` changes nothing: it is kept only so the signature is
+    the reference's."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
         "wq": ((d, h * dh), ("embed", "heads")),
@@ -79,20 +81,35 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     """q (B,Sq,H,Dh), k/v (B,Sk,Hkv,Dh); GQA via head grouping.  The logits
     product is rounded to the compute dtype before its float32 cast, the
     softcap comes before the mask, and the softmax (float32) is cast to
-    v's dtype before the second product, as in the reference."""
+    v's dtype before the second product, as in the reference.  With no
+    gradient to keep, the scale, softcap, mask and softmax write over the
+    logits (``out=``), so they are the one full-size float32 tensor alive:
+    the vlm's 2 x 8192 prefill holds 17.2 GB of them beside 40.4 GB of
+    weights.  Where autograd records the logits (``out=`` is not
+    differentiable, and ``mul_`` would overwrite the output ``tanh``
+    saves), the same steps run out of place."""
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hk
     B, Sq = q.shape[0], q.shape[1]
     q = q.reshape(B, Sq, hk, g, dh)
-    # in place past the cast: the full-width logits are the largest
-    # temporaries of a prefill
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
-    logits.div_(math.sqrt(dh))
-    if cfg.attn_softcap:
-        logits.div_(cfg.attn_softcap).tanh_().mul_(cfg.attn_softcap)
-    if mask is not None:
-        logits.masked_fill_(~mask, -1e30)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    if logits.requires_grad:
+        logits = logits / math.sqrt(dh)
+        if cfg.attn_softcap:
+            logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
+        if mask is not None:
+            logits = logits.masked_fill(~mask, -1e30)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+    else:
+        # in place past the cast: the full-width logits are the largest
+        # temporaries of a prefill
+        logits.div_(math.sqrt(dh))
+        if cfg.attn_softcap:
+            logits.div_(cfg.attn_softcap).tanh_().mul_(cfg.attn_softcap)
+        if mask is not None:
+            logits.masked_fill_(~mask, -1e30)
+        w = torch.softmax(logits, dim=-1, out=logits).to(v.dtype)
+    del logits
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(B, Sq, h * dh)
 
@@ -139,6 +156,43 @@ def full_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         outs.append(_sdpa(cfg, q[:, off:off + C], k, v, mask))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out @ p.wo.to(x.dtype), k, v
+
+
+def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                    memory: Optional[torch.Tensor] = None,
+                    kv: Optional[tuple] = None) -> torch.Tensor:
+    """Cross-attention against frontend-stub memory (B, P, D): no mask, no
+    rope.  Either ``memory`` (k/v projected here: train/prefill) or the
+    precomputed ``kv`` from the cross cache (decode)."""
+    if kv is None:
+        q, k, v = _project_qkv(cfg, p, x, kv_src=memory)
+    else:
+        h, dh = cfg.n_heads, cfg.head_dim_
+        q = x @ p.wq.to(x.dtype)
+        if cfg.qkv_bias:
+            q = q + p.bq.to(x.dtype)
+        q = q.reshape(*x.shape[:-1], h, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k, v = kv
+    out = _sdpa(cfg, q, k.to(x.dtype), v.to(x.dtype), None)
+    return out @ p.wo.to(x.dtype)
+
+
+def cross_kv(cfg: ModelConfig, p: Attention, memory: torch.Tensor):
+    """The cross-attention k/v of one layer (prefill -> cache), each
+    (B, P, Hkv, Dh) in memory's dtype."""
+    hk, dh = cfg.n_kv_heads, cfg.head_dim_
+    k = memory @ p.wk.to(memory.dtype)
+    v = memory @ p.wv.to(memory.dtype)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(memory.dtype)
+        v = v + p.bv.to(memory.dtype)
+    k = k.reshape(*memory.shape[:-1], hk, dh)
+    v = v.reshape(*memory.shape[:-1], hk, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return k, v
 
 
 # ------------------------------------------------------------- KV cache utils

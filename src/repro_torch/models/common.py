@@ -71,3 +71,23 @@ def register_params(module: torch.nn.Module, specs: dict, dtype: torch.dtype,
         module.register_parameter(name, torch.nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device),
             requires_grad=False))
+
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise, how many bfloat16 steps lie between ``a`` and ``b``:
+    the bit patterns read as integers in the order of their values (-0
+    and +0 one value), so neighbours of either sign are 1 apart."""
+    def order(t: torch.Tensor) -> torch.Tensor:
+        x = t.cpu().contiguous().view(torch.int16).int()
+        return torch.where(x < 0, -(x + 32768), x)
+    return (order(a) - order(b)).abs()
+
+
+def bf16_near(a: torch.Tensor, b: torch.Tensor, atol: float) -> bool:
+    """Two bfloat16 tensors agree: each entry equal or one ulp apart, or
+    within ``atol`` (the float32 value it rounds parted by that much).
+    The rule the port's shift and conv rows are held to against another
+    device or the reference."""
+    diff = (a.cpu().float() - b.cpu().float()).abs()
+    return bool(((bf16_ulps(a, b) <= 1) | (diff <= atol)).all())

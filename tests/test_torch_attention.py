@@ -80,6 +80,30 @@ def test_sdpa(name):
         close(got, exp)
 
 
+@pytest.mark.parametrize("name", ["gemma2-9b", "qwen3-4b"])
+def test_sdpa_under_autograd(name):
+    """With gradients recorded, ``_sdpa`` runs out of place: the same
+    output, and the gradients of q, k, v equal the reference's."""
+    import jax
+    rcfg, pcfg, _, _ = case(name)
+    h, hk, dh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim_
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(B, 9, h, dh)).astype(np.float32) * 3
+    k = rng.normal(size=(B, 11, hk, dh)).astype(np.float32) * 3
+    v = rng.normal(size=(B, 11, hk, dh)).astype(np.float32)
+    mask = (np.arange(11)[None] <= np.arange(2, 11)[:, None])[None, None,
+                                                              None]
+    g = rng.normal(size=(B, 9, h * dh)).astype(np.float32)
+    qkv = [_t(a).requires_grad_() for a in (q, k, v)]
+    got = attn._sdpa(pcfg, *qkv, _t(mask))
+    (got * _t(g)).sum().backward()
+    exp, vjp = jax.vjp(lambda *a: ref_attn._sdpa(rcfg, *a, jnp.asarray(mask)),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    close(got.detach(), exp)
+    for t, e in zip(qkv, vjp(jnp.asarray(g))):
+        close(t.grad, e)
+
+
 def test_q_chunk():
     cfg = get_config("qwen3-4b")
     rcfg = ref_config("qwen3-4b")

@@ -2,7 +2,8 @@
 version on the same tensors, exactly (K6 ``paged_attention`` within float
 tolerances); the engine on the card == the engine on the CPU, request for
 request; the staged read on the card == on the CPU; the LM ``ServeEngine``
-on the card == on the CPU, token for token.
+on the card == on the CPU, token for token; the contiguous-cache steps of
+every family on the card == on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports only the port, so it runs
@@ -1095,6 +1096,87 @@ def test_contiguous_decode_on_card_matches_cpu(cuda, arch, kv):
             assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
         else:
             torch.testing.assert_close(cb[k], ca[k], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [64, 1024, 5000, 70_000])
+def test_softmax_over_its_input_equals_out_of_place(cuda, n):
+    """``models.attention._sdpa`` writes the softmax over its float32
+    logits (``out=``): on the card that equals the out-of-place softmax
+    bit for bit, masked (-1e30) entries included, at row lengths on both
+    sides of the kernel's register-resident limit."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((3, 4, n), generator=g, device=cuda) * 5
+    x[:, :, n // 2:] = -1e30
+    exp = torch.softmax(x, dim=-1)
+    y = x.clone()
+    assert torch.softmax(y, dim=-1, out=y).data_ptr() == y.data_ptr()
+    assert torch.equal(y, exp)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
+                                  "musicgen-medium", "llama-3.2-vision-11b"])
+def test_family_steps_on_card_match_cpu(cuda, arch):
+    """The ssm, hybrid, audio and vlm families (phase 10 (a) of
+    ``chip_smoke.py``): ``forward``, ``prefill`` and 4 ``decode_step``s
+    through the step functions on the card == on the CPU, float32 reduced
+    configs with a float32 cache, each step from the CPU's cache and
+    state: logits, caches and float32 states within 1e-4 (2e-3 for rwkv6,
+    whose ln_x group norm amplifies a near-cancelling head, and zamba2,
+    whose chunked scan multiplies by exp of a difference of two float32
+    cumulative sums), bfloat16 shift and conv rows equal or one ulp apart
+    (or within that tolerance)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import bf16_near
+    tol = 2e-3 if arch in ("rwkv6-1.6b", "zamba2-1.2b") else 1e-4
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": cpu_model, cuda: copy.deepcopy(cpu_model).to(cuda)}
+    B, S, n = 3, 64, 4
+    g = torch.Generator().manual_seed(1)
+    batch = ({"frames": torch.randn((B, S, cfg.d_model), generator=g)}
+             if cfg.family == "audio" else
+             {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)})
+    if cfg.cross_attn_period:
+        batch["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                       generator=g)
+
+    def same(a: dict, b: dict) -> None:
+        assert a.keys() == b.keys()
+        for k in a:
+            x, y = a[k], b[k].cpu()
+            if x.dtype == torch.bfloat16:
+                assert bf16_near(x, y, tol), k
+            else:
+                torch.testing.assert_close(y, x, atol=tol, rtol=1e-4)
+
+    fw = {d: M.forward(cfg, m, batch, device=d)[0].cpu()
+          for d, m in models.items()}
+    torch.testing.assert_close(fw[cuda], fw["cpu"], atol=tol, rtol=1e-4)
+    logits, caches, states = {}, {}, {}
+    for d, model in models.items():
+        logits[d], caches[d] = make_prefill_step(cfg, d)(
+            model, batch, M.init_zeros(M.cache_specs(cfg, B, S + n), d))
+        states[d] = M.init_zeros(M.state_specs(cfg, B), d)
+    same(caches["cpu"], caches[cuda])
+    for t in range(n + 1):
+        torch.testing.assert_close(logits[cuda].cpu(), logits["cpu"],
+                                   atol=tol, rtol=1e-4)
+        if t:
+            same(states["cpu"], states[cuda])
+        if t == n:
+            break
+        tok = logits["cpu"].argmax(-1).to(torch.int32)[:, None]
+        caches[cuda] = {k: v.to(cuda) for k, v in caches["cpu"].items()}
+        states[cuda] = {k: v.to(cuda) for k, v in states["cpu"].items()}
+        for d, model in models.items():
+            logits[d], _, caches[d], states[d] = make_decode_step(cfg, d)(
+                model, tok, np.full(B, S + t), caches[d], states[d])
 
 
 # ------------------------------------------------------------ the sharded path

@@ -33,9 +33,30 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    # K1-K6, the LM path, the index mesh and checkpointing included
-    assert int(count) >= 50, out.stdout
+    # K1-K6, the LM path of every family (rwkv6, mamba2 and the ten
+    # configs), the index mesh and checkpointing included
+    assert int(count) >= 56, out.stdout
     assert bad == "[]", out.stdout
+
+
+_FAMILIES = r"""
+import sys
+from repro_torch.configs import ARCHS
+from repro_torch.models import mamba2, model, rwkv6   # noqa: F401
+print(len(ARCHS), sorted({c.family for c in ARCHS.values()}))
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                         "repro")))
+"""
+
+
+def test_every_family_imports_no_jax_and_no_reference():
+    """The ssm, hybrid, audio and vlm modules and configs load alone."""
+    env = dict(os.environ, PYTHONPATH=str(_SRC))
+    out = subprocess.run([sys.executable, "-c", _FAMILIES], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == [
+        "10 ['audio', 'dense', 'hybrid', 'moe', 'ssm', 'vlm']", "[]"]
 
 
 def test_engine_runs_on_the_card_unless_told_otherwise():

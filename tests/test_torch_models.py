@@ -20,6 +20,7 @@ pytest.importorskip("jax")   # the reference; absent where only the port runs
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import get_config as ref_config
 from repro.models import attention as ref_attn
 from repro.models import common as ref_common
@@ -64,8 +65,9 @@ def test_configs_are_the_references():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_config(name))
         assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
             ref_config(name).reduced())
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("rwkv6-1.6b")
+        get_config("rwkv7-0.1b")
 
 
 def test_rms_norm():
@@ -163,12 +165,26 @@ def test_init_params_follow_the_specs():
     assert specs == ref
     tree = M.numpy_from_params(model)
     assert jax.tree.map(lambda a: a.shape, tree) == specs
+    # the reference's rules on its stacked leaves: 1-D leaves (final_norm)
+    # start at 0; a layer's matrix is normal times 1/sqrt(shape[-2]); a
+    # layer's vector, stacked (L, n), is normal times 1/sqrt(L)
+    vectors = {}
     for name, p in model.named_parameters():
-        if p.dim() == 1:
-            assert not p.any(), name
-        else:
+        if p.dim() >= 2:
             std = float(p.std()) * np.sqrt(p.shape[-2])
             assert 0.8 < std < 1.2, name
+        elif name.startswith("layers."):
+            vectors.setdefault(name.split(".", 2)[2], []).append(p)
+        else:
+            assert not p.any(), name
+    assert vectors.keys() == {"ln1", "ln2", "attn.q_norm", "attn.k_norm"}
+    for name, rows in vectors.items():
+        stacked = torch.stack(rows)
+        assert stacked.shape[0] == pcfg.n_layers
+        # the sample std of n normals lies within 4 / sqrt(2n) of 1 (four
+        # of its standard errors): 0.50 for q_norm's 2 x 16, 0.25 for ln1's
+        std = float(stacked.std()) * np.sqrt(stacked.shape[0])
+        assert abs(std - 1) < 4 / np.sqrt(2 * stacked.numel()), name
     assert layer_param_specs(pcfg).keys() == {"ln1", "attn", "ln2", "ffn"}
     assert n_attn_layers(pcfg) == pcfg.n_layers
 
@@ -192,7 +208,12 @@ def _n_params(specs: dict) -> int:
 
 @pytest.mark.parametrize("name,n", [("gemma2-9b", 10_159_209_984),
                                     ("qwen1.5-32b", 35_197_096_960),
-                                    ("qwen2-moe-a2.7b", 14_315_587_584)])
+                                    ("qwen2-moe-a2.7b", 14_315_587_584),
+                                    ("rwkv6-1.6b", 1_583_941_632),
+                                    ("zamba2-1.2b", 1_119_979_648),
+                                    ("musicgen-medium", 1_818_379_776),
+                                    ("llama-3.2-vision-11b",
+                                     10_110_734_336)])
 def test_full_width_sizes(name, n):
     """Parameters of the other full-width configs the port serves, counted
     from the specs with nothing allocated, equal to the reference's."""
@@ -202,9 +223,3 @@ def test_full_width_sizes(name, n):
                        ref_model.param_specs(ref_config(name)),
                        is_leaf=lambda s: isinstance(s, ref_model.Spec))
     assert specs == ref
-
-
-def test_other_families_are_refused():
-    cfg = dataclasses.replace(get_config("qwen3-4b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.DenseLM(cfg)
