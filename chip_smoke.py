@@ -179,7 +179,24 @@ printed):
    patches; S = 256; cosine > 0.95), or every position decoded from a zero
    state (ssm, hybrid; S = 64) in float32 with a float32 cache and rows
    (cosine > 0.9999; the configured bfloat16 run's cosine recorded: its
-   roundings grow through the random deep stack); then the ``kernels``
+   roundings grow through the random deep stack);
+11. training (``train_phase``, plain PyTorch and autograd, no kernel): (a)
+   3 ``make_train_step`` steps on the card == on the CPU for float32
+   reduced configs of all ten archs on one batch from the port's
+   ``ShardedLoader`` over ``synth_corpus``, each from the CPU's state
+   (loss, gnorm and lr, ``TRAIN_TOL``, and every parameter,
+   ``TRAIN_PARAM_TOL``, after each step); (b) granite-moe-1b-a400m at
+   full width and depth as configured (float32 params, bfloat16 compute,
+   remat), 4 rows of 4096 tokens (train_4k's rows cut from 256), a
+   warm-up step then 8 steps on one loader batch: tokens/s, p50/p99 step
+   ms, device ms, kernels and busy share a step (``_device_profile``),
+   peak memory and the optimizer state's bytes; every loss and gnorm
+   finite, the last loss below the first, and remat on == off on the
+   config cut to 2 layers; (c) ``TrainDriver`` at the small100m preset
+   (4 x 128, 60 steps), one run with a hard failure at step 30 and
+   checkpoints every 10, one uninterrupted: events ``failure@30`` and
+   ``restart@30``, the losses after the restart equal to the
+   uninterrupted run's (``DRIVER_TOL``); then the ``kernels``
    line (K6's long-context numbers, its served ones under
    ``served``; K1's shard route under K1's ``sharded`` and its launches on
    the mesh path under ``mesh``; K2's stacked form under K2's ``stacked``,
@@ -315,6 +332,47 @@ RECURRENT_F32_MIN = 0.9999
 # the port to it at full depth on the CPU)
 RECURRENT_BF16_RATIO = 1.5
 RECURRENT_BF16_SLACK = 0.01
+# phase 11, training (plain PyTorch and autograd, no kernel): (a) card ==
+# CPU, float32 reduced configs of all ten archs, on one loader batch
+TRAIN_PARITY_SHAPE = (2, 64)     # rows, tokens (rwkv6: two chunks of 32)
+TRAIN_PARITY_STEPS = 3
+# eps 1e-5, not 1e-8: Adam's step mhat / (sqrt(nhat) + eps) is +-lr
+# whatever the size of the gradient, so an entry whose gradient lies near
+# eps moves by up to lr on either side for a rounding of its gradient (at
+# 1e-8 qwen1.5's zero-initialised key bias parts by 1.6% of its leaf, at
+# 1e-5 by 0.013%, on one H100 80GB HBM3 at 700 W)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-5)
+# loss, gnorm and lr, relative; measured there: <= 2.7e-7, rwkv6 1.6e-3
+# (its ln_x group norm amplifies a near-cancelling head, as in phase 10),
+# zamba2 6.0e-5-1.9e-4; moe as dense (the combine's atomic index_add_
+# parts by rounding only)
+TRAIN_TOL = {"default": 1e-4, "rwkv6-1.6b": 2e-3, "zamba2-1.2b": 2e-3}
+# every parameter, in units of its leaf's largest effective weight
+# (``_leaf_part``); measured <= 1.3e-4 (qwen1.5's zero-initialised value
+# bias, 3 steps of lr large), 1.3e-5 elsewhere; rwkv6 1.0e-4, zamba2 2.9e-3
+# (its gradient parts by up to 2e-3 of a leaf: exp of a difference of
+# float32 cumulative sums, as in phase 10)
+TRAIN_PARAM_TOL = {"default": 1e-3, "rwkv6-1.6b": 1e-2, "zamba2-1.2b": 1e-2}
+NORM_LEAVES = ("final_norm", "ln1", "ln2", "ln1_post", "ln2_post", "q_norm",
+               "k_norm", "norm", "ln_x", "ln")
+# (b) granite-moe-1b-a400m at full width and depth: train_4k's 4096-token
+# rows, its 256 rows cut to the 4 one card holds beside the 22.2 GB of
+# params, gradients and moments; one warm-up step, then TRAIN_STEPS
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_SHAPE = (4, 4096)
+TRAIN_STEPS = 8
+TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+REMAT_LAYERS = 2                 # remat on == off on the config cut to this
+# loss relative, gradients in units of each leaf's largest entry: the
+# bfloat16 products round at other points when a layer is recomputed
+# (measured 3.1e-6-5.4e-6 and 6.5e-3-6.9e-3 over runs, under 2 bfloat16
+# steps of 2^-8)
+REMAT_TOL = 2e-2
+# (c) TrainDriver at the small100m preset: (steps, rows, tokens); a hard
+# failure at DRIVER_FAIL_AT with checkpoints every DRIVER_CKPT_EVERY steps
+DRIVER_RUN = (60, 4, 128)
+DRIVER_FAIL_AT, DRIVER_CKPT_EVERY = 30, 10
+DRIVER_TOL = 1e-4                # measured 0: the replay is bit for bit
 
 
 # K2's bound: 24 bytes (key, payload, tombstone) for each of these
@@ -3414,6 +3472,273 @@ def families_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 11
+def _train_batch(cfg, B: int, S: int, seed: int, mean_len: int = 512) -> dict:
+    """One batch from the port's ``ShardedLoader`` over a seeded
+    ``synth_corpus`` (numpy): tokens and labels (-1 past each document);
+    the audio stub's frames and the vlm's patches seeded besides (float32
+    numpy, cast to the compute dtype by the model)."""
+    from repro_torch.data import PackedDocStore, ShardedLoader, synth_corpus
+    store = PackedDocStore(block_tokens=256)
+    store.build(synth_corpus(64, cfg.vocab_size, seed=seed,
+                             mean_len=mean_len))
+    batch = ShardedLoader(store, B, S, seed=seed).next_batch()
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        batch["frames"] = (rng.normal(size=(B, S, cfg.d_model)) * 0.1
+                           ).astype(np.float32)
+        del batch["tokens"]
+    if cfg.cross_attn_period:
+        batch["patches"] = (rng.normal(size=(B, cfg.n_patches, cfg.d_model))
+                            * 0.1).astype(np.float32)
+    return batch
+
+
+def _leaf_part(got, exp) -> float:
+    """The largest part between two models' parameters, each leaf's in
+    units of its largest effective weight on the CPU: the entry itself,
+    or 1 + s for a norm scale s (NORM_LEAVES), which the model applies as
+    1 + s and which starts at 0."""
+    part = 0.0
+    for (k, g), e in zip(got.named_parameters(), exp.parameters()):
+        e = e.detach().float()
+        w = 1 + e if k.rsplit(".", 1)[-1] in NORM_LEAVES else e
+        d = (g.detach().cpu().float() - e).abs().max()
+        part = max(part, float(d) / max(float(w.abs().max()), 1e-30))
+    return part
+
+
+def train_parity(dev) -> dict:
+    """(a) ``make_train_step`` on the card == on the CPU: the reduced form
+    of each of the ten configs in float32 (params and compute), the same
+    seeded weights on both, TRAIN_PARITY_STEPS steps on one fixed batch
+    from the loader, each from the CPU's state (its parameters and
+    moments copied to the card first); loss, gnorm and lr within TRAIN_TOL
+    (relative) and every parameter within TRAIN_PARAM_TOL (``_leaf_part``)
+    after each step.  Fed so, the parts are one step's: the trajectories
+    of a random reduced zamba2 part by about 100x a step (two runs on one
+    CPU, their matrices at other addresses, reach 2% in 3 steps)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    out = {}
+    B, S = TRAIN_PARITY_SHAPE
+    for arch in sorted(ARCHS):
+        cfg = dataclasses.replace(ARCHS[arch].reduced(),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        batch = _train_batch(cfg, B, S, 21)
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(22), "cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        opt = {"cpu": adamw_init(cpu), "card": adamw_init(card)}
+        step = {"cpu": make_train_step(cfg, AdamWConfig(**TRAIN_OPT), "cpu"),
+                "card": make_train_step(cfg, AdamWConfig(**TRAIN_OPT), dev)}
+        tol = {"metrics": TRAIN_TOL.get(arch, TRAIN_TOL["default"]),
+               "params": TRAIN_PARAM_TOL.get(arch,
+                                             TRAIN_PARAM_TOL["default"])}
+        worst = {"metrics": 0.0, "params": 0.0}
+        for i in range(TRAIN_PARITY_STEPS):
+            with torch.no_grad():
+                for a, b in zip(card.parameters(), cpu.parameters()):
+                    a.copy_(b)
+                for k in ("mu", "nu"):
+                    for n, t in opt["card"][k].items():
+                        t.copy_(opt["cpu"][k][n])
+                opt["card"]["step"].copy_(opt["cpu"]["step"])
+            m = {"cpu": step["cpu"](cpu, opt["cpu"], batch)[2],
+                 "card": step["card"](card, opt["card"], batch)[2]}
+            for k in ("loss", "gnorm", "lr"):
+                a, b = float(m["cpu"][k]), float(m["card"][k])
+                if not np.isfinite(a) or not np.isfinite(b):
+                    raise AssertionError(f"train {arch} step {i}: {k} "
+                                         f"{a} (cpu) {b} (card)")
+                worst["metrics"] = max(worst["metrics"],
+                                       abs(b - a) / max(abs(a), 1e-30))
+            worst["params"] = max(worst["params"], _leaf_part(card, cpu))
+            if any(worst[k] > tol[k] for k in tol):
+                raise AssertionError(f"train {arch} step {i}: card != cpu "
+                                     f"({worst}, tol {tol})")
+        out[arch] = {**worst, "tol": tol, "last_loss": float(m["cpu"]["loss"])}
+        log(f"train parity {arch}: " + json.dumps(out[arch]))
+        del cpu, card, opt, step
+    return out
+
+
+def _remat_part(cfg, dev, batch: dict) -> dict:
+    """loss_fn and its gradient with remat on and off, the same seeded
+    weights: the loss's relative part and the gradients' (in units of
+    each leaf's largest entry)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    got = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = M.init_params(c, torch.Generator(device=dev).manual_seed(23),
+                              dev)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        loss, _ = M.loss_fn(c, model, batch, device=dev)
+        g = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+        got[remat] = (float(loss.detach()), g)
+        del model, loss
+    (l0, g0), (l1, g1) = got[False], got[True]
+    part = max(float((b - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+               for a, b in zip(g0, g1))
+    return {"layers": cfg.n_layers, "loss_part": abs(l1 - l0) / abs(l0),
+            "grad_part": part}
+
+
+def full_width_train(dev, card: str) -> dict:
+    """(b) TRAIN_ARCH at full width and depth, as configured (float32
+    params, bfloat16 compute, remat), seeded random weights: one warm-up
+    step, then TRAIN_STEPS steps on one fixed TRAIN_SHAPE batch from the
+    loader, each timed to its synchronize; one more step profiled.  Every
+    loss and gnorm finite, the last loss below the first (memorisation),
+    and remat on == off on the config cut to REMAT_LAYERS layers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    batch = _train_batch(cfg, B, S, 24, mean_len=2 * S)
+    labels = int((batch["labels"] >= 0).sum())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(25),
+                          dev)
+    opt = adamw_init(model)
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for k in ("mu", "nu") for t in opt[k].values()) + 4
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_FULL_OPT), dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    _, _, m = step(model, opt, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        _, _, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    peak = int(torch.cuda.max_memory_allocated())
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"train {TRAIN_ARCH}: non-finite loss or gnorm "
+                             f"({losses}, {gnorms})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {TRAIN_ARCH}: the loss did not fall on "
+                             f"a fixed batch ({losses})")
+    prof = _device_profile(lambda: step(model, opt, batch), 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = _remat_part(dataclasses.replace(cfg, n_layers=REMAT_LAYERS), dev,
+                        batch)
+    if max(remat["loss_part"], remat["grad_part"]) > REMAT_TOL:
+        raise AssertionError(f"train {TRAIN_ARCH}: remat on != off "
+                             f"({remat}, tol {REMAT_TOL})")
+    step_s = np.asarray(times)
+    out = {"card": card, "arch": TRAIN_ARCH, "params": n_params,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "rows": B, "seq": S, "label_tokens": labels,
+           "setup_s": setup_s, "warmup_step_s": warm_s,
+           "steps": TRAIN_STEPS,
+           "tokens_per_s": B * S * TRAIN_STEPS / float(step_s.sum()),
+           "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
+           "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
+           "losses": losses, "gnorms": gnorms,
+           "optimizer_state_bytes": opt_bytes,
+           "max_memory_allocated_bytes": peak, "profile": prof,
+           "remat_check": remat, "seconds": time.perf_counter() - t0}
+    log(f"train full width {TRAIN_ARCH} on {card}: " + json.dumps(out))
+    return out
+
+
+def driver_restart(dev, card: str) -> dict:
+    """(c) ``TrainDriver`` at the ``small100m`` preset (DRIVER_RUN): one run
+    with a hard failure at DRIVER_FAIL_AT and checkpoints every
+    DRIVER_CKPT_EVERY steps, one uninterrupted; the events are the
+    failure and the restart from the checkpoint at the failing step, and
+    the losses after it equal the uninterrupted run's within
+    DRIVER_TOL (relative)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainDriver, TrainRunConfig
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    cfg = preset_config("qwen3-4b", "small100m")
+    steps, B, S = DRIVER_RUN
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(steps // 10, 5),
+                      total_steps=steps)
+    res, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="repro_ckpt_") as tmp:
+        for name, kw in (("crash", dict(fail_at=DRIVER_FAIL_AT,
+                                        ckpt_every=DRIVER_CKPT_EVERY)),
+                         ("plain", dict(ckpt_every=steps))):
+            t = time.perf_counter()
+            run = TrainRunConfig(steps=steps, batch=B, seq_len=S,
+                                 ckpt_dir=f"{tmp}/{name}", **kw)
+            res[name] = TrainDriver(cfg, run, opt, device=dev).train()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            shutil.rmtree(f"{tmp}/{name}")
+    crash, plain = res["crash"], res["plain"]
+    want = [f"failure@{DRIVER_FAIL_AT}", f"restart@{DRIVER_FAIL_AT}"]
+    if crash["events"] != want or plain["events"]:
+        raise AssertionError(f"driver events {crash['events']} / "
+                             f"{plain['events']}, want {want}")
+    after = np.asarray(crash["losses"][DRIVER_FAIL_AT:])
+    ref = np.asarray(plain["losses"][DRIVER_FAIL_AT:])
+    part = float(np.max(np.abs(after / ref - 1)))
+    if len(after) != steps - DRIVER_FAIL_AT or part > DRIVER_TOL:
+        raise AssertionError(f"driver: losses after the restart part from "
+                             f"the uninterrupted run's by {part}")
+    out = {"card": card, "preset": "small100m", "arch": "qwen3-4b",
+           "params": sum(int(np.prod(s.shape))
+                         for s in leaves(M.param_spec_tree(cfg))),
+           "steps": steps, "rows": B,
+           "seq": S, "events": crash["events"],
+           "restart_loss_part": part, "first_loss": plain["losses"][0],
+           "final_loss": plain["final_loss"],
+           "crash_run_s": secs["crash"], "plain_run_s": secs["plain"],
+           "seconds": time.perf_counter() - t0}
+    log(f"train driver on {card}: " + json.dumps(out))
+    return out
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 11: (a) card == CPU, (b) the full-width run, (c) the driver's
+    restart."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"parity": train_parity(dev), "full": full_width_train(dev, card),
+           "driver": driver_restart(dev, card)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     # phase 10's vlm prefill holds 40.4 GB of weights and a 17.2 GB float32
     # logits tensor a layer: without expandable segments the caching
@@ -3491,6 +3816,7 @@ def main() -> int:
                              lm["launches"]["paged_attention"]))
     contig = contiguous_phase(dev, card)
     fam = families_phase(dev, card)
+    train = train_phase(dev, card)
     for k in kernels:
         k["ptxas"] = ptxas[k["name"]]
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
@@ -3529,8 +3855,24 @@ def main() -> int:
             f"{r['consistency']['cosine_min']}")
     for arch, r in fam["runs"].items():
         log(f"lm family {arch} on {card}: " + json.dumps(_family_summary(r)))
+    full, drv = train["full"], train["driver"]
+    log(f"train {TRAIN_ARCH} on {card}: {full['tokens_per_s']} tokens/s "
+        f"({full['rows']} x {full['seq']}), p50 step {full['p50_step_ms']} "
+        f"ms, p99 step {full['p99_step_ms']} ms, device "
+        f"{full['profile']['device_ms']} ms and "
+        f"{full['profile']['kernels']} kernels a step, busy share "
+        f"{full['profile']['device_busy_share']}, peak device memory "
+        f"{full['max_memory_allocated_bytes']} bytes, optimizer state "
+        f"{full['optimizer_state_bytes']} bytes, loss {full['losses'][0]} -> "
+        f"{full['losses'][-1]}, remat on == off within "
+        f"{full['remat_check']}")
+    log(f"train driver small100m on {card}: events {drv['events']}, losses "
+        f"after the restart within {drv['restart_loss_part']} of the "
+        f"uninterrupted run's; card == cpu (worst part) "
+        + json.dumps({a: max(r["metrics"], r["params"])
+                      for a, r in train["parity"].items()}))
     log(f"phase 9 {contig['seconds']:.3f} s; phase 10 "
-        f"{fam['seconds']:.3f} s; total "
+        f"{fam['seconds']:.3f} s; phase 11 {train['seconds']:.3f} s; total "
         f"{time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

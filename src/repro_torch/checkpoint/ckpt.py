@@ -39,6 +39,8 @@ import torch
 from ..core.aulid import Aulid, AulidConfig
 from ..core.blockdev import BlockDevice
 from ..core.partition import RangePartition
+from ..tree import leaves_with_path as _leaves
+from ..tree import unflatten as _unflatten
 
 SHARDS = 8
 
@@ -50,32 +52,6 @@ def _fnv1a(s: str) -> np.uint64:
     return h
 
 
-def _is_named_tuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _children(node):
-    """(path segment, child) pairs of an inner node in JAX's order, or None
-    for a leaf."""
-    if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
-    if _is_named_tuple(node):
-        return [(f".{f}", getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
-        return [(f"[{i}]", v) for i, v in enumerate(node)]
-    return None
-
-
-def _leaves(tree, prefix: str = "") -> list:
-    """(keystr path, leaf) pairs of ``tree`` in JAX's flatten order."""
-    if tree is None:
-        return []
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
-    return [pair for seg, v in kids for pair in _leaves(v, prefix + seg)]
-
-
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
@@ -84,22 +60,6 @@ def _as_numpy(leaf) -> np.ndarray:
 
 def _flatten(tree) -> list[tuple[str, np.ndarray]]:
     return [(p, _as_numpy(v)) for p, v in _leaves(tree)]
-
-
-def _unflatten(tree_like, leaves):
-    """A tree of ``tree_like``'s structure (dicts with sorted keys, as JAX
-    rebuilds them) holding the next items of the iterator ``leaves``."""
-    if tree_like is None:
-        return None
-    kids = _children(tree_like)
-    if kids is None:
-        return next(leaves)
-    if isinstance(tree_like, dict):
-        return {k: _unflatten(tree_like[k], leaves) for k in sorted(tree_like)}
-    vals = [_unflatten(v, leaves) for _, v in kids]
-    if _is_named_tuple(tree_like):
-        return type(tree_like)(*vals)
-    return type(tree_like)(vals)
 
 
 def save_checkpoint(dirpath: str, step: int, tree, extra: dict | None = None):

@@ -1,7 +1,6 @@
-"""Shared layer primitives — port of ``src/repro/models/common.py:10-44``.
+"""Shared layer primitives — port of ``src/repro/models/common.py``.
 
-Explicit dtypes everywhere, as in the reference.  The training-only pieces
-(``cotangent_cast``, ``cross_entropy``) come with the training path.
+Explicit dtypes everywhere, as in the reference.
 """
 from __future__ import annotations
 
@@ -60,6 +59,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+class _CotangentCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def cotangent_cast(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; backward casts the cotangent to x's dtype, placed
+    at the lm-head and embedding boundaries as in the reference.  (PyTorch
+    already hands each tensor a gradient of its own dtype, so this keeps
+    the reference's structure rather than changing a number.)"""
+    return _CotangentCast.apply(x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  softcap_val: float = 0.0) -> torch.Tensor:
+    """Mean next-token loss; logits (B,S,V) float32, labels (B,S) integer
+    (-1 pad), the mean over the labels that are not padding."""
+    logits = softcap(logits.float(), softcap_val)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.clamp(min=0).long()[..., None],
+                              dim=-1)[..., 0]
+    mask = labels >= 0
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
 
 
 def register_params(module: torch.nn.Module, specs: dict, dtype: torch.dtype,

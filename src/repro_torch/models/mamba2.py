@@ -7,7 +7,11 @@ Chunkwise SSD (Dao & Gu 2024): within a chunk, outputs are a masked
 (H, N, Dh) state is carried.  The reference scans the chunk states; the
 port loops over the chunks in Python.  Its three-operand einsums are
 written as pairwise products here, and the (B, nc, L, L, H) intra-chunk
-decay is built in place (one such tensor alive at a time).
+decay is built in place (one such tensor alive at a time) unless autograd
+records it, when the same steps run out of place.  The decay is masked
+before its exp, where the reference masks after: the same forward numbers,
+but a finite gradient where the reference's is NaN (a chunk whose decay
+difference above the diagonal exceeds float32's exp range).
 
 ``mamba_decode`` writes the layer's rows of the state dict IN PLACE and
 returns the same dict (the reference returns an updated copy).  The conv
@@ -114,10 +118,16 @@ def mamba_block(cfg: ModelConfig, p: Mamba2, u: torch.Tensor) -> torch.Tensor:
     # ---- intra-chunk (lower-triangular decay attention) -------------------
     # Ldec[t,s] = exp(cum[t]-cum[s]) for s<=t, built in place
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=u.device))
-    M = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).exp_()      # (B,nc,L,L,H)
-    M.masked_fill_(~tri[:, :, None], 0.0)
+    # masked before the exp (exp(-inf) = 0, the reference's masked value):
+    # above the diagonal cum_t - cum_s > 0 overflows, and the reference's
+    # where(tri, exp(diff), 0) then has a NaN gradient (0 * inf)
+    M = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill_(
+        ~tri[:, :, None], -torch.inf)                               # (B,nc,L,L,H)
     G = torch.einsum("bcln,bcsn->bcls", Cc, Bc)                     # (B,nc,L,L)
-    M.mul_(G[..., None]).mul_(dtc[:, :, None, :, :])               # G * Ldec * dt
+    if M.requires_grad:     # autograd keeps exp's output: out of place
+        M = M.exp() * G[..., None] * dtc[:, :, None, :, :]
+    else:
+        M.exp_().mul_(G[..., None]).mul_(dtc[:, :, None, :, :])    # G * Ldec * dt
     y_intra = torch.einsum("bclsh,bcshd->bclhd", M, xc)
     del M, G
 

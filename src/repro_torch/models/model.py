@@ -1,8 +1,8 @@
 """Model assembly of every family: parameter specs, the ``DenseLM``
 module, its initialisation, the carry-over of the reference's parameter
-tree, the KV cache and recurrent-state specs, and the full-sequence forward,
-prefill and decode steps over a contiguous cache — port of
-``src/repro/models/model.py:48-110, 120-235``.
+tree, the KV cache and recurrent-state specs, the full-sequence forward,
+the training loss, the prefill and decode steps over a contiguous cache,
+and the input specs — port of ``src/repro/models/model.py``.
 
 Parameter names equal the reference's keys (``layers.3.attn.wq`` is row 3
 of the reference's ``params["layers"]["attn"]["wq"]``, ``layers.0.tm.wr``
@@ -17,21 +17,26 @@ CUDA is absent, or when the model, cache or state lives elsewhere.  Token
 and position inputs may be numpy arrays or tensors; so may the audio
 family's ``frames`` and the vlm's ``patches`` (B, P, D), which are cast to
 the compute dtype.  The audio family prefills from frames and decodes
-token ids through its embedding table, as in the reference.  The loss and
-the dry-run specs (``Spec``, ``input_specs``) come later (ROADMAP Queue 1
-items 9.6 and 9.8).
+token ids through its embedding table, as in the reference.  ``loss_fn``
+is the training loss (the train step differentiates it, also on the card
+unless ``device`` names another); ``input_specs`` and ``param_spec_tree``
+give the reference's ``Spec`` trees (shape, dtype, logical axes) of a
+step's inputs and of the parameters.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import SHAPES, ModelConfig, ShapeConfig
 from ..device import resolve
+from ..tree import tree_map
 from .attention import kv_cache_specs
-from .common import dtype_of, register_params, rms_norm, softcap
+from .common import (cotangent_cast, cross_entropy, dtype_of,
+                     register_params, rms_norm, softcap)
 from .mamba2 import mamba_state_specs
 from .rwkv6 import rwkv_state_specs
 from .transformer import (_tree_at, extra_param_specs, layer_param_specs,
@@ -39,27 +44,44 @@ from .transformer import (_tree_at, extra_param_specs, layer_param_specs,
                           n_cross_layers, stack_decode, stack_forward)
 
 
-def _shapes(specs: dict, lead: tuple = ()) -> dict:
-    """A nested ``name -> (shape, logical_axes)`` dict as ``name ->
-    lead + shape``."""
-    return {k: _shapes(s, lead) if isinstance(s, dict)
-            else lead + tuple(s[0]) for k, s in specs.items()}
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Shape + dtype + logical axes for one tensor."""
+    shape: tuple
+    dtype: str
+    axes: tuple
+
+
+def _spec_tree(specs: dict, dtype: str, lead: tuple = (),
+               lead_axes: tuple = ()) -> dict:
+    """A nested ``name -> (shape, logical_axes)`` dict as ``name -> Spec``
+    with ``lead`` / ``lead_axes`` put in front."""
+    return {k: _spec_tree(s, dtype, lead, lead_axes) if isinstance(s, dict)
+            else Spec(lead + tuple(s[0]), dtype, lead_axes + tuple(s[1]))
+            for k, s in specs.items()}
+
+
+def param_spec_tree(cfg: ModelConfig) -> dict:
+    """The reference's ``param_specs``: the parameter tree as ``Spec``
+    leaves, layer parameters stacked over a leading L axis ("layers"), the
+    vlm's cross layers over n_cross_layers."""
+    d, v, dt = cfg.d_model, cfg.vocab_size, cfg.param_dtype
+    out: dict = {"embed": Spec((v, d), dt, ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Spec((d, v), dt, ("embed", "vocab"))
+    out["final_norm"] = Spec((d,), dt, (None,))
+    out["layers"] = _spec_tree(layer_param_specs(cfg), dt, (cfg.n_layers,),
+                               ("layers",))
+    extras = extra_param_specs(cfg)
+    if extras:
+        out["extras"] = _spec_tree(extras, dt)
+    return out
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """Nested name -> shape tuple of the reference's parameter tree (layer
-    parameters stacked over a leading L axis, the vlm's cross layers over
-    n_cross_layers)."""
-    d, v = cfg.d_model, cfg.vocab_size
-    out: dict = {"embed": (v, d)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (d, v)
-    out["final_norm"] = (d,)
-    out["layers"] = _shapes(layer_param_specs(cfg), (cfg.n_layers,))
-    extras = extra_param_specs(cfg)
-    if extras:
-        out["extras"] = _shapes(extras)
-    return out
+    """Nested name -> shape tuple of the reference's parameter tree (the
+    shapes of :func:`param_spec_tree`)."""
+    return tree_map(lambda s: s.shape, param_spec_tree(cfg))
 
 
 class DenseLM(torch.nn.Module):
@@ -166,13 +188,13 @@ def _rows(tree: dict, n: int, prefix: str) -> dict:
     return out
 
 
-@torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> DenseLM:
-    """A :class:`DenseLM` holding the reference's parameter tree ``tree``
-    (numpy arrays, layer arrays stacked over L and cross-layer arrays over
-    n_cross, as ``jax.device_get`` of ``repro.models.model.init_params``
-    gives it).  Refuses a tree whose keys or shapes differ from
-    :func:`param_specs`."""
+def flat_arrays(cfg: ModelConfig, tree: dict) -> dict:
+    """The reference's parameter tree ``tree`` (arrays, layer arrays
+    stacked over L and cross-layer arrays over n_cross) as ``name ->
+    array``, one entry per parameter of :class:`DenseLM` (row i of a
+    stacked leaf under ``layers.{i}.``).  Refuses a tree whose keys or
+    shapes differ from :func:`param_specs`.  The optimizer's moments,
+    which mirror the parameters, go through it too."""
     want = _flat(param_specs(cfg))
     got = {k: np.asarray(a) for k, a in _flat(tree).items()}
     if set(got) != set(want):
@@ -184,7 +206,6 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> DenseLM:
     if bad:
         raise ValueError(f"parameter shapes differ from param_specs "
                          f"(got, want): {bad}")
-    model = DenseLM(cfg, device)
     arrays = _rows(tree["layers"], cfg.n_layers, "layers.")
     extras = tree.get("extras", {})
     if "shared_attn" in extras:
@@ -194,6 +215,17 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> DenseLM:
                             "extras.cross."))
     arrays.update({k: tree[k] for k in ("embed", "lm_head", "final_norm")
                    if k in tree})
+    return arrays
+
+
+@torch.no_grad()
+def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> DenseLM:
+    """A :class:`DenseLM` holding the reference's parameter tree ``tree``
+    (numpy arrays, as ``jax.device_get`` of
+    ``repro.models.model.init_params`` gives it; see
+    :func:`flat_arrays`)."""
+    arrays = flat_arrays(cfg, tree)
+    model = DenseLM(cfg, device)
     for k, p in model.named_parameters():
         p.copy_(_from_numpy(arrays[k]))
     return model
@@ -211,35 +243,40 @@ def _nest(flat: dict) -> dict:
     return tree
 
 
-def _stacked(modules) -> dict:
-    """The parameters of equal modules as one nested tree of arrays
-    stacked over the modules."""
-    per = [{k: _to_numpy(v) for k, v in m.named_parameters()}
-           for m in modules]
-    return _nest({k: np.stack([p[k] for p in per]) for k in per[0]})
+def stacked_tree(cfg: ModelConfig, flat: dict) -> dict:
+    """The inverse of :func:`flat_arrays`: ``name -> numpy array``, one
+    entry per parameter, as the reference's tree (layer arrays stacked
+    over L, cross-layer arrays over n_cross)."""
+    def rows(prefix: str, n: int) -> dict:
+        per = [{k[len(f"{prefix}{i}."):]: v for k, v in flat.items()
+                if k.startswith(f"{prefix}{i}.")} for i in range(n)]
+        return _nest({k: np.stack([p[k] for p in per]) for k in per[0]})
+
+    tree = {"layers": rows("layers.", cfg.n_layers)}
+    extras = {}
+    if cfg.shared_attn_period:
+        pre = "extras.shared_attn."
+        extras["shared_attn"] = _nest({k[len(pre):]: v for k, v in
+                                       flat.items() if k.startswith(pre)})
+    if n_cross_layers(cfg):
+        extras["cross"] = rows("extras.cross.", n_cross_layers(cfg))
+    if extras:
+        tree["extras"] = extras
+    tree.update({k: flat[k] for k in ("embed", "lm_head", "final_norm")
+                 if k in flat})
+    return tree
 
 
 def numpy_from_params(model: DenseLM) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's tree of
-    numpy arrays, layer arrays stacked over L and cross-layer arrays over
-    n_cross (bfloat16 parameters as their exact float32 values)."""
-    tree = {"layers": _stacked(model.layers)}
-    extras = {}
-    if "shared_attn" in model.extras:
-        extras["shared_attn"] = _nest({
-            k: _to_numpy(v)
-            for k, v in model.extras["shared_attn"].named_parameters()})
-    if "cross" in model.extras:
-        extras["cross"] = _stacked(model.extras["cross"])
-    if extras:
-        tree["extras"] = extras
-    for k, v in model.named_parameters(recurse=False):
-        tree[k] = _to_numpy(v)
-    return tree
+    numpy arrays (bfloat16 parameters as their exact float32 values)."""
+    return stacked_tree(model.cfg, {k: _to_numpy(v)
+                                    for k, v in model.named_parameters()})
 
 
 def _head(cfg: ModelConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    x = cotangent_cast(x)  # keep the backward residual stream in x's dtype
     logits = (x @ w.to(x.dtype)).float()
     return softcap(logits, cfg.logit_softcap)
 
@@ -327,8 +364,9 @@ def _embed_in(cfg: ModelConfig, model: DenseLM, batch: dict,
         x = _floats(batch["frames"], dev).to(cdt)
         if cfg.embed_scale:
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)
-        return x
-    return _embed(cfg, model, batch["tokens"], dev)
+    else:
+        x = _embed(cfg, model, batch["tokens"], dev)
+    return cotangent_cast(x)  # embed-table grads in the compute dtype
 
 
 def forward(cfg: ModelConfig, model: DenseLM, batch: dict,
@@ -350,6 +388,18 @@ def forward(cfg: ModelConfig, model: DenseLM, batch: dict,
                                   cache=cache)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x, aux, cache
+
+
+def loss_fn(cfg: ModelConfig, model: DenseLM, batch: dict, *, device=None):
+    """Mean next-token loss over ``batch["labels"]`` (B,S) (-1 is padding)
+    plus, for moe, 0.01 * aux / n_layers.  Returns (loss, {"loss", "aux"}),
+    float32 scalars.  The step functions differentiate it."""
+    x, aux, _ = forward(cfg, model, batch, device=device)
+    logits = _head(cfg, model, x)
+    loss = cross_entropy(logits, _ids(batch["labels"], x.device))
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"loss": loss, "aux": aux}
 
 
 @torch.no_grad()
@@ -383,3 +433,59 @@ def decode_step(cfg: ModelConfig, model: DenseLM, tokens, pos,
     logits = _head(cfg, model, x)[:, 0]
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     return logits, next_tok, cache, state
+
+
+# --------------------------------------------------------------- input specs
+
+CACHE_AXES = ("layers", "kv_batch", "kv_seq", "kv_heads", None)
+SCALE_AXES = ("layers", "kv_batch", "kv_seq", "kv_heads")
+# logical axes of each cache and state entry, as the reference's specs
+_AXES = {"k": CACHE_AXES, "v": CACHE_AXES, "k_scale": SCALE_AXES,
+         "v_scale": SCALE_AXES,
+         "xk": ("layers", "kv_batch", None, "kv_heads", None),
+         "xv": ("layers", "kv_batch", None, "kv_heads", None),
+         "ssm": ("layers", "kv_batch", "ssm_heads", None, None),
+         "conv": ("layers", "kv_batch", None, None),
+         "wkv": ("layers", "kv_batch", "ssm_heads", None, None),
+         "tshift_t": ("layers", "kv_batch", None),
+         "tshift_c": ("layers", "kv_batch", None)}
+
+
+def _with_axes(specs: dict) -> dict:
+    return {k: Spec(tuple(shape), dt, _AXES[k])
+            for k, (shape, dt) in specs.items()}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig | str) -> dict:
+    """Spec tree for every *data* input of the step the shape exercises.
+
+    train:   tokens/frames + labels (+ patches for vlm)
+    prefill: tokens/frames (+ patches) + zero cache to fill
+    decode:  tokens (B,1) + pos + cache/state of seq_len context
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    specs: dict = {}
+    audio_stub = cfg.frontend_stub and cfg.family == "audio"
+    if shape.kind in ("train", "prefill"):
+        if audio_stub:
+            specs["frames"] = Spec((B, S, d), cfg.compute_dtype,
+                                   ("batch", None, None))
+        else:
+            specs["tokens"] = Spec((B, S), "int32", ("batch", None))
+        if shape.kind == "train":
+            specs["labels"] = Spec((B, S), "int32", ("batch", None))
+        if cfg.cross_attn_period:
+            specs["patches"] = Spec((B, cfg.n_patches, d), cfg.compute_dtype,
+                                    ("batch", None, None))
+        if shape.kind == "prefill":
+            specs["cache"] = _with_axes(cache_specs(cfg, B, S))
+        return specs
+    # decode / long_decode: one new token against a seq_len-deep context
+    specs["tokens"] = Spec((B, 1), "int32", ("batch", None))
+    specs["pos"] = Spec((B,), "int32", ("batch",))
+    specs["cache"] = _with_axes(cache_specs(cfg, B, S))
+    specs["state"] = _with_axes(state_specs(cfg, B))
+    return specs

@@ -11,8 +11,11 @@ one shared attention block (``shared_attn``, applied where ``has_attn``,
 its cache row ``attn_idx``) and the vlm's cross-attention layers
 (``cross``, one :class:`AttnBlock` per row of the reference's
 (n_cross, ...) stack, applied where ``has_cross`` as row ``cross_idx``).
-The reference's ``remat`` and ``scan_unroll`` are training and dry-run
-knobs and have no effect here.
+``cfg.remat`` recomputes each layer in the backward, as the reference's
+``jax.checkpoint`` around its layer body does: ``stack_forward`` runs each
+layer through ``torch.utils.checkpoint`` when gradients are on and no
+cache is filled.  The reference's ``scan_unroll`` is a dry-run knob: the
+port's loop is already unrolled.
 
 Two loops: ``stack_forward`` (train / prefill; optionally fills a KV
 cache and, for the vlm, the cross k/v once per cross layer) and
@@ -27,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (Attention, attn_param_specs, cross_attention,
@@ -229,6 +233,46 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor):
 
 # ------------------------------------------------------------------ forward
 
+def _layer_forward(cfg: ModelConfig, flags: dict, i: int, p, x: torch.Tensor,
+                   positions: torch.Tensor, extras, memory, cache):
+    """Layer ``i`` of the stack over x (B,S,D): (x, the MoE aux loss or
+    None).  A given ``cache`` gets the layer's k/v, in place."""
+    fill = cache is not None
+    if cfg.family == "hybrid":
+        if cfg.shared_attn_period:
+            sh = extras["shared_attn"]
+
+            def do_attn(x, row=int(flags["attn_idx"][i])):
+                a, k, v = full_attention(cfg, sh.attn,
+                                         rms_norm(x, sh.ln, cfg.norm_eps),
+                                         positions)
+                if fill:
+                    write_cache_prefill(cfg, cache, row, k, v)
+                return x + a
+
+            x = _maybe(flags["has_attn"][i], do_attn, x)
+        return x + mamba_block(cfg, p.ssm, rms_norm(x, p.norm,
+                                                    cfg.norm_eps)), None
+    if cfg.family == "ssm":
+        x = x + time_mix(cfg, p.tm, rms_norm(x, p.ln1, cfg.norm_eps))
+        return x + channel_mix(cfg, p.tm, rms_norm(x, p.ln2,
+                                                   cfg.norm_eps)), None
+    a, k, v = full_attention(cfg, p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
+                             positions, bool(flags["sliding"][i]))
+    if cfg.post_norm:
+        a = rms_norm(a, p.ln1_post, cfg.norm_eps)
+    x = x + a
+    if fill:
+        write_cache_prefill(cfg, cache, i, k, v)
+    if cfg.cross_attn_period:
+        cp = extras["cross"][int(flags["cross_idx"][i])]
+        x = _maybe(flags["has_cross"][i], lambda x: x + cross_attention(
+            cfg, cp.attn, rms_norm(x, cp.ln, cfg.norm_eps), memory=memory),
+            x)
+    ff, a_loss = _ffn(cfg, p, x)
+    return x + ff, a_loss
+
+
 def stack_forward(cfg: ModelConfig, layers, x: torch.Tensor,
                   positions: torch.Tensor, *, extras=None,
                   memory: Optional[torch.Tensor] = None,
@@ -239,9 +283,12 @@ def stack_forward(cfg: ModelConfig, layers, x: torch.Tensor,
 
     ``cache`` not None => prefill mode: self-attention k/v (and, for the
     vlm, the cross k/v of every cross layer, computed once) are written
-    into it, in place."""
+    into it, in place.  With ``cfg.remat``, gradients on and no cache, each
+    layer's activations are recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``) instead of kept."""
     flags = layer_flags(cfg)
     fill = cache is not None
+    remat = cfg.remat and not fill and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fill and cfg.cross_attn_period:
         # the cross k/v once per cross layer (memory is fixed per request)
@@ -250,41 +297,13 @@ def stack_forward(cfg: ModelConfig, layers, x: torch.Tensor,
             cache["xk"][j] = k
             cache["xv"][j] = v
     for i, p in enumerate(layers):
-        if cfg.family == "hybrid":
-            if cfg.shared_attn_period:
-                sh = extras["shared_attn"]
-
-                def do_attn(x, row=int(flags["attn_idx"][i])):
-                    a, k, v = full_attention(cfg, sh.attn,
-                                             rms_norm(x, sh.ln, cfg.norm_eps),
-                                             positions)
-                    if fill:
-                        write_cache_prefill(cfg, cache, row, k, v)
-                    return x + a
-
-                x = _maybe(flags["has_attn"][i], do_attn, x)
-            x = x + mamba_block(cfg, p.ssm, rms_norm(x, p.norm, cfg.norm_eps))
-        elif cfg.family == "ssm":
-            x = x + time_mix(cfg, p.tm, rms_norm(x, p.ln1, cfg.norm_eps))
-            x = x + channel_mix(cfg, p.tm, rms_norm(x, p.ln2, cfg.norm_eps))
+        args = (cfg, flags, i, p, x, positions, extras, memory, cache)
+        if remat:
+            x, a_loss = checkpoint(_layer_forward, *args, use_reentrant=False)
         else:
-            a, k, v = full_attention(cfg, p.attn,
-                                     rms_norm(x, p.ln1, cfg.norm_eps),
-                                     positions, bool(flags["sliding"][i]))
-            if cfg.post_norm:
-                a = rms_norm(a, p.ln1_post, cfg.norm_eps)
-            x = x + a
-            if fill:
-                write_cache_prefill(cfg, cache, i, k, v)
-            if cfg.cross_attn_period:
-                cp = extras["cross"][int(flags["cross_idx"][i])]
-                x = _maybe(flags["has_cross"][i], lambda x: x + cross_attention(
-                    cfg, cp.attn, rms_norm(x, cp.ln, cfg.norm_eps),
-                    memory=memory), x)
-            ff, a_loss = _ffn(cfg, p, x)
-            if a_loss is not None:
-                aux = aux + a_loss
-            x = x + ff
+            x, a_loss = _layer_forward(*args)
+        if a_loss is not None:
+            aux = aux + a_loss
     return x, aux, cache
 
 

@@ -3,7 +3,7 @@ version on the same tensors, exactly (K6 ``paged_attention`` within float
 tolerances); the engine on the card == the engine on the CPU, request for
 request; the staged read on the card == on the CPU; the LM ``ServeEngine``
 on the card == on the CPU, token for token; the contiguous-cache steps of
-every family on the card == on the CPU.
+every family and the train step on the card == on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports only the port, so it runs
@@ -1111,6 +1111,57 @@ def test_softmax_over_its_input_equals_out_of_place(cuda, n):
     y = x.clone()
     assert torch.softmax(y, dim=-1, out=y).data_ptr() == y.data_ptr()
     assert torch.equal(y, exp)
+
+
+_NORM_LEAVES = ("final_norm", "ln1", "ln2", "ln1_post", "ln2_post", "q_norm",
+                "k_norm", "norm", "ln_x", "ln")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """``make_train_step`` (phase 11 (a) of ``chip_smoke.py``): 3 steps on
+    a reduced float32 config on the card == on the CPU, each from the
+    CPU's parameters and moments, on one batch from the port's loader:
+    loss, gnorm and lr within 1e-4 relative; every parameter within 1e-3
+    of its leaf's largest effective weight (1 + s for a norm scale s).
+    Adam's eps is 1e-5: its step is +-lr whatever the gradient's size, so
+    an entry whose gradient lies near eps moves by up to lr for a rounding
+    of its gradient (chip_smoke.py's TRAIN_OPT)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import PackedDocStore, ShardedLoader, synth_corpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32", compute_dtype="float32")
+    store = PackedDocStore(block_tokens=256)
+    store.build(synth_corpus(64, cfg.vocab_size, seed=21))
+    batch = ShardedLoader(store, 2, 64, seed=21).next_batch()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(22), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    models = {"cpu": cpu, cuda: card}
+    opts = {d: adamw_init(m) for d, m in models.items()}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-5)
+    for _ in range(3):
+        with torch.no_grad():
+            card.load_state_dict(cpu.state_dict())
+            for k in ("mu", "nu"):
+                for n, t in opts[cuda][k].items():
+                    t.copy_(opts["cpu"][k][n])
+            opts[cuda]["step"].copy_(opts["cpu"]["step"])
+        m = {d: make_train_step(cfg, opt_cfg, d)(models[d], opts[d], batch)[2]
+             for d in models}
+        for k in ("loss", "gnorm", "lr"):
+            torch.testing.assert_close(m[cuda][k].cpu(), m["cpu"][k],
+                                       rtol=1e-4, atol=0)
+        for (n, a), b in zip(card.named_parameters(), cpu.parameters()):
+            b = b.detach()
+            w = 1 + b if n.rsplit(".", 1)[-1] in _NORM_LEAVES else b
+            torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
+                                       atol=1e-3 * float(w.abs().max()),
+                                       msg=n)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",

@@ -19,6 +19,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.optim.adamw", "repro_torch.optim.compress",
+        "repro_torch.data.store", "repro_torch.data.loader",
+        "repro_torch.runtime.ft", "repro_torch.runtime.driver",
+        "repro_torch.launch.train"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "repro"
@@ -34,8 +38,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
     # K1-K6, the LM path of every family (rwkv6, mamba2 and the ten
-    # configs), the index mesh and checkpointing included
-    assert int(count) >= 56, out.stdout
+    # configs), the index mesh, checkpointing and training (optim, data,
+    # runtime, launch/train) included
+    assert int(count) >= 73, out.stdout
     assert bad == "[]", out.stdout
 
 
