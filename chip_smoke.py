@@ -196,7 +196,21 @@ printed):
    (4 x 128, 60 steps), one run with a hard failure at step 30 and
    checkpoints every 10, one uninterrupted: events ``failure@30`` and
    ``restart@30``, the losses after the restart equal to the
-   uninterrupted run's (``DRIVER_TOL``); then the ``kernels``
+   uninterrupted run's (``DRIVER_TOL``);
+12. the LM sharding rules, the dry-run and the baselines (no kernel):
+   (a) ``sharding_phase``: ``moe_ffn`` under a (data=2, model=2)
+   ``ShardingContext`` over cuda:0 named 4 times (G = 4 dispatch groups)
+   on the card == on the CPU for reduced float32 qwen2-moe-a2.7b and
+   granite-moe-1b-a400m (``SHARD_TOL``); then granite-moe-1b-a400m at full
+   width and depth, one forward over 4 x 4096 without a context (G = 1)
+   and one under it (G = 4): G, C, the share of routed entries dropped,
+   device ms (``_device_profile``); the mesh adds no memory; (b)
+   ``dryrun_phase``: one single-pod ``launch.dryrun.run_cell`` of each
+   family on the meta device (no JAX on the card), every status ``ok``
+   and no CUDA memory taken; (c) ``baselines_phase``: the port's five
+   baselines and ``Aulid`` bulkload 1,000,000 covid-like keys, 10,000
+   lookups (10% absent) and 200 scans of 100 held to the sorted keys,
+   blocks fetched a lookup and a scan (host numbers); then the ``kernels``
    line (K6's long-context numbers, its served ones under
    ``served``; K1's shard route under K1's ``sharded`` and its launches on
    the mesh path under ``mesh``; K2's stacked form under K2's ``stacked``,
@@ -373,6 +387,26 @@ REMAT_TOL = 2e-2
 DRIVER_RUN = (60, 4, 128)
 DRIVER_FAIL_AT, DRIVER_CKPT_EVERY = 30, 10
 DRIVER_TOL = 1e-4                # measured 0: the replay is bit for bit
+
+# phase 12 (a): granite-moe-1b-a400m's forward at full width under a
+# (data=2, model=2) context over cuda:0 named 4 times, so the MoE
+# dispatches in G = 4 groups of capacity C/4, beside G = 1
+SHARD_ARCH = "granite-moe-1b-a400m"
+SHARD_SHAPE = (4, 4096)
+SHARD_MESH = dict(data=2, model=2)
+SHARD_PROFILED = 2               # forwards profiled for each G
+SHARD_TINY = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
+SHARD_TOL = 1e-4                 # card == CPU at G = 4, float32 (CONTIG_TOL)
+# (b): one single-pod dry-run cell of each family, on the meta device
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("granite-moe-1b-a400m", "train_4k"),
+                ("rwkv6-1.6b", "long_500k"), ("zamba2-1.2b", "decode_32k"),
+                ("musicgen-medium", "prefill_32k"),
+                ("llama-3.2-vision-11b", "decode_32k"))
+# (c): the paper's five baselines and AULID over covid-like keys (host
+# only): N keys, lookups (10% absent), scans of SCAN_LEN from present keys
+BASELINE_KEYS = 1_000_000
+BASELINE_LOOKUPS = 10_000
+BASELINE_SCANS, BASELINE_SCAN_LEN = 200, 100
 
 
 # K2's bound: 24 bytes (key, payload, tombstone) for each of these
@@ -3739,6 +3773,213 @@ def train_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 12
+def _grouped_tiny(arch: str, mesh, dev) -> float:
+    """``moe_ffn`` under the mesh's context on the card == on the CPU, a
+    float32 reduced config, seeded weights and a batch whose first 28
+    tokens lean towards expert 0 (its queues overflow); the largest
+    difference of output and aux loss."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ShardingContext, set_context
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator().manual_seed(28)
+    layer = moe.MoE(cfg, torch.float32)
+    with torch.no_grad():
+        for t in layer.parameters():
+            t.copy_(torch.randn(t.shape, generator=g) / np.sqrt(t.shape[-2]))
+    x = torch.randn((4, 16, cfg.d_model), generator=g)
+    r0 = layer.router.detach()[:, 0]
+    x.view(-1, cfg.d_model)[:28] += 4 * r0 / r0.norm()
+    card = moe.MoE(cfg, torch.float32, dev)
+    card.load_state_dict(layer.state_dict())
+    set_context(ShardingContext(mesh))
+    try:
+        if moe._dispatch_groups(4) != 4:
+            raise AssertionError(f"sharding: {mesh.shape} gives "
+                                 f"{moe._dispatch_groups(4)} groups, not 4")
+        y, aux = moe.moe_ffn(cfg, layer, x)
+        yc, auxc = moe.moe_ffn(cfg, card, x.to(dev))
+    finally:
+        set_context(None)
+    return max(float((yc.cpu() - y).abs().max()),
+               float((auxc.cpu() - aux).abs()))
+
+
+def _dropped_share(cfg, model, batch: dict, dev) -> dict:
+    """One forward's routed (token, k) entries and the share its MoE layers
+    drop, counted from the ``keep`` mask of each layer's own dispatch
+    (``models.moe.dispatch``, wrapped for the run) in the groups and
+    capacity the installed context gives."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    counts = {"routed": 0, "dropped": 0}
+    plain = moe.dispatch
+
+    def counted(*args):
+        keep, *rest = plain(*args)
+        counts["routed"] += keep.numel()
+        counts["dropped"] += int((~keep).sum())
+        return (keep, *rest)
+
+    moe.dispatch = counted
+    try:
+        with torch.no_grad():
+            M.forward(cfg, model, batch, device=dev)
+    finally:
+        moe.dispatch = plain
+    return dict(counts, share=counts["dropped"] / counts["routed"])
+
+
+def sharding_phase(dev, card: str) -> dict:
+    """(a) The LM sharding rules' one numeric effect, the MoE's grouped
+    dispatch (no kernel): card == CPU at G = 4 on the reduced configs
+    (SHARD_TOL); then SHARD_ARCH at full width and depth (seeded random
+    float32 weights, bfloat16 compute) over SHARD_SHAPE tokens, one
+    forward without a context (G = 1) and one under a SHARD_MESH context
+    over cuda:0 named 4 times (G = 4): G, C, the dropped share, device ms
+    (``_device_profile``), finite hidden states.  One card holds every
+    position, so the mesh adds no memory and no capacity is claimed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ShardingContext, set_context
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(**SHARD_MESH, devices=[dev] * 4)
+    tiny = {a: _grouped_tiny(a, mesh, dev) for a in SHARD_TINY}
+    if max(tiny.values()) > SHARD_TOL:
+        raise AssertionError(f"sharding: grouped moe_ffn card != cpu {tiny}")
+    cfg = get_config(SHARD_ARCH)
+    B, S = SHARD_SHAPE
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(29),
+                          dev)
+    toks = np.random.default_rng(29).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    runs = {}
+    for ctx in (None, ShardingContext(mesh)):
+        set_context(ctx)
+        try:
+            G = moe._dispatch_groups(B)
+            with torch.no_grad():
+                x, aux, _ = M.forward(cfg, model, batch, device=dev)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"sharding: G = {G} forward not "
+                                         f"finite")
+                prof = _device_profile(
+                    lambda: M.forward(cfg, model, batch, device=dev),
+                    SHARD_PROFILED)
+            runs[G] = {"G": G, "C": max(moe._capacity(cfg, B * S) // G, 4),
+                       "dropped": _dropped_share(cfg, model, batch, dev),
+                       "aux": float(aux), "device_ms": prof["device_ms"],
+                       "kernels": prof["kernels"],
+                       "device_busy_share": prof["device_busy_share"]}
+        finally:
+            set_context(None)
+    if sorted(runs) != [1, 4]:
+        raise AssertionError(f"sharding: groups {sorted(runs)}, want 1, 4")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": SHARD_ARCH, "rows": B, "seq": S,
+           "mesh": SHARD_MESH, "tiny_card_vs_cpu": tiny,
+           "runs": {str(g): r for g, r in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    log(f"sharding {SHARD_ARCH} on {card}: " + json.dumps(out))
+    return out
+
+
+def dryrun_phase(card: str) -> dict:
+    """(b) One single-pod cell of each family through
+    ``repro_torch.launch.dryrun.run_cell`` (the meta device, no JAX): every
+    status ``ok``, and no CUDA memory taken."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: {rec['error']}"
+                                 f"\n{rec['traceback']}")
+        r = rec["roofline"]
+        cells.append({"arch": arch, "shape": shape, "run_s": rec["run_s"],
+                      "argument_gb_per_dev":
+                      rec["memory"]["argument_bytes"] / 1e9,
+                      "flops_per_dev": r["flops_per_dev"],
+                      "dominant": r["dominant"],
+                      "useful_flops_ratio": rec["useful_flops_ratio"]})
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("dryrun: the meta-device run took CUDA memory")
+    out = {"card": card, "cells": cells, "seconds": time.perf_counter() - t0}
+    log(f"dryrun on {card} (host, meta device): " + json.dumps(out))
+    return out
+
+
+def baselines_phase(card: str) -> dict:
+    """(c) The port's five baselines (``core.baselines.ALL_BASELINES``) and
+    its ``Aulid`` bulkload the same BASELINE_KEYS covid-like keys (payload
+    key + 1); BASELINE_LOOKUPS lookups (10% absent) and BASELINE_SCANS
+    scans are held to the sorted keys; blocks fetched a lookup and a scan
+    (``BlockDevice`` reads) and host seconds.  Host numbers, not the
+    card's."""
+    from repro_torch.core import Aulid, BlockDevice
+    from repro_torch.core.baselines import ALL_BASELINES
+    from repro_torch.core.workloads import make_dataset, payloads_for
+    t0 = time.perf_counter()
+    keys = make_dataset("covid", BASELINE_KEYS, seed=30)
+    pays = payloads_for(keys)
+    rng = np.random.default_rng(30)
+    n_miss = BASELINE_LOOKUPS // 10
+    miss = rng.integers(0, 2**63, 2 * n_miss).astype(np.uint64)
+    miss = miss[~np.isin(miss, keys)][:n_miss]
+    q = rng.permutation(np.concatenate(
+        [rng.choice(keys, BASELINE_LOOKUPS - n_miss), miss]))
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    exp = [int(pays[i]) if keys[i] == k else None for k, i in zip(q, pos)]
+    starts = rng.integers(0, len(keys), BASELINE_SCANS)
+    makers = dict(ALL_BASELINES, aulid=lambda: Aulid(BlockDevice()))
+    out = {"card": card, "keys": BASELINE_KEYS, "dataset": "covid",
+           "lookups": len(q), "scans": BASELINE_SCANS,
+           "scan_len": BASELINE_SCAN_LEN, "indexes": {}}
+    for name, make in makers.items():
+        t = time.perf_counter()
+        idx = make()
+        idx.bulkload(keys, pays)
+        bulk_s = time.perf_counter() - t
+        idx.reset_io()
+        t = time.perf_counter()
+        got = [idx.lookup(int(k)) for k in q]
+        lookup_s = time.perf_counter() - t
+        if got != exp:
+            bad = sum(a != b for a, b in zip(got, exp))
+            raise AssertionError(f"baselines {name}: {bad} lookups wrong")
+        reads = idx.io.reads
+        idx.reset_io()
+        for s in starts:
+            want = [(int(k), int(p)) for k, p in
+                    zip(keys[s:s + BASELINE_SCAN_LEN],
+                        pays[s:s + BASELINE_SCAN_LEN])]
+            if idx.scan(int(keys[s]), BASELINE_SCAN_LEN) != want:
+                raise AssertionError(f"baselines {name}: scan from {s} "
+                                     f"wrong")
+        out["indexes"][name] = {
+            "bulkload_s": bulk_s, "lookup_us": lookup_s / len(q) * 1e6,
+            "blocks_per_lookup": reads / len(q),
+            "blocks_per_scan": idx.io.reads / BASELINE_SCANS,
+            "storage_bytes": idx.storage_bytes}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"baselines on {card} (host): " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     # phase 10's vlm prefill holds 40.4 GB of weights and a 17.2 GB float32
     # logits tensor a layer: without expandable segments the caching
@@ -3817,6 +4058,11 @@ def main() -> int:
     contig = contiguous_phase(dev, card)
     fam = families_phase(dev, card)
     train = train_phase(dev, card)
+    t12 = time.perf_counter()
+    shard = sharding_phase(dev, card)
+    dry = dryrun_phase(card)
+    base = baselines_phase(card)
+    t12 = time.perf_counter() - t12
     for k in kernels:
         k["ptxas"] = ptxas[k["name"]]
         log(f"{k['name']} on {card}: median launch {k['ms']} ms of device "
@@ -3871,8 +4117,22 @@ def main() -> int:
         f"uninterrupted run's; card == cpu (worst part) "
         + json.dumps({a: max(r["metrics"], r["params"])
                       for a, r in train["parity"].items()}))
+    one, four = shard["runs"]["1"], shard["runs"]["4"]
+    log(f"sharding {SHARD_ARCH} forward on {card} ({SHARD_SHAPE[0]} x "
+        f"{SHARD_SHAPE[1]}): G = 1, C = {one['C']}: dropped "
+        f"{one['dropped']['share']}, device {one['device_ms']} ms; G = 4, "
+        f"C = {four['C']}: dropped {four['dropped']['share']}, device "
+        f"{four['device_ms']} ms; card == cpu at G = 4 within "
+        f"{max(shard['tiny_card_vs_cpu'].values())}")
+    log(f"dryrun on {card}: {len(dry['cells'])} cells ok in "
+        f"{dry['seconds']:.3f} s")
+    log(f"baselines on {card} ({BASELINE_KEYS} covid keys, host): blocks "
+        f"a lookup " + json.dumps({n: r["blocks_per_lookup"]
+                                   for n, r in base["indexes"].items()}))
     log(f"phase 9 {contig['seconds']:.3f} s; phase 10 "
-        f"{fam['seconds']:.3f} s; phase 11 {train['seconds']:.3f} s; total "
+        f"{fam['seconds']:.3f} s; phase 11 {train['seconds']:.3f} s; "
+        f"phase 12 {t12:.3f} s (sharding {shard['seconds']:.3f}, dryrun "
+        f"{dry['seconds']:.3f}, baselines {base['seconds']:.3f}); total "
         f"{time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

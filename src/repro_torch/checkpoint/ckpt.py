@@ -15,7 +15,14 @@ and names each leaf by JAX's ``keystr`` path (``"['params']['embed']"``,
 ``"[0]"``, ``".field"``), so the round-robin shard of each leaf and
 ``manifest.json`` equal the reference's, and a checkpoint written by
 either package restores in the other.  A tensor is saved as the numpy
-array of its values (``bfloat16`` has no numpy type and raises).
+array of its values (``tree.leaf_numpy``).  numpy has no ``bfloat16``: the
+port carries its bits as a 2-byte void array (:data:`BF16_BITS`), the form
+``np.load`` gives the reference's ml_dtypes leaves in.  Such a leaf is
+written under the
+manifest dtype ``"bfloat16"`` with the ``'<V2'`` header ml_dtypes writes,
+so each shard entry's bytes equal the reference's (whole ``.npz`` files
+never do: the zip stamps the time), and :func:`leaf_tensor` reads it back
+as a bfloat16 tensor.
 
 The JSON manifest is the source of truth; the learned index over path-hash
 keys serves partial reads (:func:`restore_params_subset`: one lookup a
@@ -32,6 +39,7 @@ import json
 import os
 import pathlib
 import shutil
+import zipfile
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ import torch
 from ..core.aulid import Aulid, AulidConfig
 from ..core.blockdev import BlockDevice
 from ..core.partition import RangePartition
+from ..tree import BF16_BITS, leaf_numpy, leaf_tensor
 from ..tree import leaves_with_path as _leaves
 from ..tree import unflatten as _unflatten
 
@@ -52,14 +61,28 @@ def _fnv1a(s: str) -> np.uint64:
     return h
 
 
-def _as_numpy(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_BITS else str(arr.dtype)
+
+
+def _savez(path: pathlib.Path, arrays: dict) -> None:
+    """``np.savez``, but a bfloat16 leaf's bits get the ``'<V2'`` header
+    that ``np.savez`` writes for an ml_dtypes ``bfloat16`` array."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for name, arr in arrays.items():
+            with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
+                if arr.dtype != BF16_BITS:
+                    np.lib.format.write_array(f, arr)
+                    continue
+                np.lib.format.write_array_header_1_0(
+                    f, {"descr": "<V2", "fortran_order": False,
+                        "shape": arr.shape})
+                f.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _flatten(tree) -> list[tuple[str, np.ndarray]]:
-    return [(p, _as_numpy(v)) for p, v in _leaves(tree)]
+    return [(p, leaf_numpy(v)) for p, v in _leaves(tree)]
 
 
 def save_checkpoint(dirpath: str, step: int, tree, extra: dict | None = None):
@@ -79,10 +102,10 @@ def save_checkpoint(dirpath: str, step: int, tree, extra: dict | None = None):
         shards[s][name] = arr
         manifest["entries"][path] = {
             "shard": s, "entry": name, "shape": list(arr.shape),
-            "dtype": str(arr.dtype), "key": int(_fnv1a(path)),
+            "dtype": _dtype_name(arr), "key": int(_fnv1a(path)),
         }
     for s, d in enumerate(shards):
-        np.savez(tmp / f"shard_{s}.npz", **d)
+        _savez(tmp / f"shard_{s}.npz", d)
     # learned manifest: hash(path) -> packed (shard, entry_idx)
     keys = np.array(sorted(e["key"] for e in manifest["entries"].values()),
                     dtype=np.uint64)
@@ -117,10 +140,11 @@ def load_manifest(ckpt_dir: str) -> tuple[dict, Aulid]:
 
 
 def restore_checkpoint(ckpt_dir: str, tree_like, devices=None):
-    """Restore into the structure of ``tree_like``: numpy leaves, or with
-    ``devices`` (a matching tree of torch devices) tensors placed on them —
-    the elastic path: the target devices may differ from the saver's.
-    Returns (tree, manifest)."""
+    """Restore into the structure of ``tree_like``: numpy leaves (a
+    ``"bfloat16"`` entry as its bits, :data:`BF16_BITS`), or with
+    ``devices`` (a matching tree of torch devices) tensors placed on them
+    (bfloat16 entries as bfloat16) — the elastic path: the target devices
+    may differ from the saver's.  Returns (tree, manifest)."""
     d = pathlib.Path(ckpt_dir)
     manifest = json.loads((d / "manifest.json").read_text())
     cache: dict[int, dict] = {}
@@ -140,8 +164,7 @@ def restore_checkpoint(ckpt_dir: str, tree_like, devices=None):
         if len(devs) != len(paths):
             raise ValueError(f"devices has {len(devs)} leaves, the tree "
                              f"{len(paths)}")
-        out = [torch.from_numpy(load(p)).to(dev)
-               for p, dev in zip(paths, devs)]
+        out = [leaf_tensor(load(p)).to(dev) for p, dev in zip(paths, devs)]
     return _unflatten(tree_like, iter(out)), manifest
 
 

@@ -13,8 +13,9 @@ decode steps the caches and recurrent states.  As in the reference, the
 decode step passes the cache only to a family that has one
 (``cache_specs`` non-empty) and the state only to one that has one
 (``state_specs`` non-empty), and returns ``{}`` in the place of either that
-it does not have.  The reference's sharding trees (``shardings_for``,
-``replicated``) have no counterpart on one device.
+it does not have.  :func:`shardings_for` gives a spec tree's shardings
+under the reference's rule tables as spec tuples (nothing places a tensor
+by them: the dry-run counts a device's bytes with them).
 
     step = make_train_step(cfg)                   # on cuda:0
     opt_state = adamw_init(model)
@@ -33,6 +34,23 @@ from ..device import resolve
 from ..models import model as M
 from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                      opt_state_specs)
+from ..parallel.sharding import (ACT_RULES, PARAM_RULES, NamedSharding,
+                                 spec_for)
+from ..tree import tree_map
+
+
+def shardings_for(spec_tree, mesh, *, params: bool):
+    """Spec tree -> tree of spec tuples (``PARAM_RULES`` or
+    ``ACT_RULES``), the reference's ``NamedSharding`` tree without the
+    mesh."""
+    rules = PARAM_RULES if params else ACT_RULES
+    return tree_map(lambda s: spec_for(s.shape, s.axes, mesh, rules),
+                    spec_tree)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
 
 # ------------------------------------------------------------------ train
 

@@ -5,9 +5,12 @@ against a contiguous KV cache (decode), and against frontend-stub memory
 (``serving.paged_model``) attends through the K6 kernel instead and uses
 only the projection.
 
-The reference's sharding hooks are the identity on one device and are
-dropped: ``shard_acts`` (its activation constraints) and the
-``attn_seq_shard`` branch (q rows kept on their seq shard).  The reference
+The reference's sharding hooks are dropped: its ``shard_acts`` calls
+(``parallel.sharding.shard_acts`` is ported as the identity: there is no
+GSPMD layout to constrain) and the ``attn_seq_shard`` branch (q rows kept
+on their seq shard).  ``kv_cache_specs`` gives (shape, dtype); the cache's
+logical axes (the reference's ``CACHE_AXES`` and ``SCALE_AXES``) live in
+``models.model``, whose ``input_specs`` attaches them.  The reference
 scans the query chunks of a long sequence; the port loops over them in
 Python.
 

@@ -21,7 +21,8 @@ token ids through its embedding table, as in the reference.  ``loss_fn``
 is the training loss (the train step differentiates it, also on the card
 unless ``device`` names another); ``input_specs`` and ``param_spec_tree``
 give the reference's ``Spec`` trees (shape, dtype, logical axes) of a
-step's inputs and of the parameters.
+step's inputs and of the parameters, and ``spec_tree_to_meta`` a tree of
+them as meta tensors.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig
 from ..device import resolve
-from ..tree import tree_map
+from ..tree import leaf_tensor, tree_map
 from .attention import kv_cache_specs
 from .common import (cotangent_cast, cross_entropy, dtype_of,
                      register_params, rms_norm, softcap)
@@ -82,6 +83,14 @@ def param_specs(cfg: ModelConfig) -> dict:
     """Nested name -> shape tuple of the reference's parameter tree (the
     shapes of :func:`param_spec_tree`)."""
     return tree_map(lambda s: s.shape, param_spec_tree(cfg))
+
+
+def spec_tree_to_meta(specs) -> dict:
+    """A ``Spec`` tree as tensors on the meta device (shape and dtype, no
+    storage): the reference's ``spec_tree_to_sds``, for the dry-run."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=getattr(torch,
+                                                                 s.dtype),
+                                          device="meta"), specs)
 
 
 class DenseLM(torch.nn.Module):
@@ -163,18 +172,10 @@ def _flat(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def _from_numpy(a) -> torch.Tensor:
-    """A CPU tensor of ``a``'s values.  A ``bfloat16`` array (ml_dtypes'
-    type, as ``jax.device_get`` gives it) is carried bit for bit."""
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """``t``'s values as numpy; bfloat16 (no numpy type) widens exactly to
-    float32."""
+    """``t``'s values as numpy; bfloat16 widens exactly to float32, so
+    that the tree feeds numpy and ``jnp`` code, which take no void arrays
+    (a checkpoint keeps the bits instead: ``tree.leaf_numpy``)."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -227,7 +228,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> DenseLM:
     arrays = flat_arrays(cfg, tree)
     model = DenseLM(cfg, device)
     for k, p in model.named_parameters():
-        p.copy_(_from_numpy(arrays[k]))
+        p.copy_(leaf_tensor(arrays[k]))
     return model
 
 
@@ -269,7 +270,9 @@ def stacked_tree(cfg: ModelConfig, flat: dict) -> dict:
 
 def numpy_from_params(model: DenseLM) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's tree of
-    numpy arrays (bfloat16 parameters as their exact float32 values)."""
+    numpy arrays, bfloat16 parameters as their exact float32 values (the
+    tests feed it to the reference; ``runtime.driver.checkpoint_tree``
+    gives the bits form a checkpoint stores)."""
     return stacked_tree(model.cfg, {k: _to_numpy(v)
                                     for k, v in model.named_parameters()})
 
@@ -341,7 +344,8 @@ def _ids(a, dev: torch.device) -> torch.Tensor:
 def _floats(a, dev: torch.device) -> torch.Tensor:
     """Frame or patch embeddings (numpy, bfloat16 numpy included, or a
     tensor) on ``dev``."""
-    return (a if isinstance(a, torch.Tensor) else _from_numpy(a)).to(dev)
+    return (a if isinstance(a, torch.Tensor)
+            else leaf_tensor(np.array(a))).to(dev)
 
 
 def _embed(cfg: ModelConfig, model: DenseLM, tokens,

@@ -14,7 +14,9 @@ its cache row ``attn_idx``) and the vlm's cross-attention layers
 ``cfg.remat`` recomputes each layer in the backward, as the reference's
 ``jax.checkpoint`` around its layer body does: ``stack_forward`` runs each
 layer through ``torch.utils.checkpoint`` when gradients are on and no
-cache is filled.  The reference's ``scan_unroll`` is a dry-run knob: the
+cache is filled, and reinstalls the forward's ``ShardingContext`` around
+the recomputation (a CUDA backward runs on autograd's device thread, where
+no context is installed, so the MoE would otherwise recompute with G = 1).  The reference's ``scan_unroll`` is a dry-run knob: the
 port's loop is already unrolled.
 
 Two loops: ``stack_forward`` (train / prefill; optionally fills a KV
@@ -33,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import get_context, installed
 from .attention import (Attention, attn_param_specs, cross_attention,
                         cross_kv, decode_attention, full_attention,
                         write_cache_prefill)
@@ -290,6 +293,7 @@ def stack_forward(cfg: ModelConfig, layers, x: torch.Tensor,
     fill = cache is not None
     remat = cfg.remat and not fill and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = get_context()
     if fill and cfg.cross_attn_period:
         # the cross k/v once per cross layer (memory is fixed per request)
         for j, cp in enumerate(extras["cross"]):
@@ -299,7 +303,9 @@ def stack_forward(cfg: ModelConfig, layers, x: torch.Tensor,
     for i, p in enumerate(layers):
         args = (cfg, flags, i, p, x, positions, extras, memory, cache)
         if remat:
-            x, a_loss = checkpoint(_layer_forward, *args, use_reentrant=False)
+            x, a_loss = checkpoint(
+                _layer_forward, *args, use_reentrant=False,
+                context_fn=lambda: (installed(ctx), installed(ctx)))
         else:
             x, a_loss = _layer_forward(*args)
         if a_loss is not None:

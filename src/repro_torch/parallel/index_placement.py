@@ -30,7 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .sharding import INDEX_RULES, IndexMesh, index_mesh, spec_for
+from .sharding import INDEX_RULES, DeviceMesh, index_mesh, spec_for
 
 __all__ = ["MESH_AXIS", "REPLICATED_FIELDS", "index_mesh",
            "mesh_num_devices", "mesh_local_shards", "stacked_spec",
@@ -43,7 +43,7 @@ MESH_AXIS = "shards"
 REPLICATED_FIELDS = frozenset({"bounds", "leaf_next_chain", "ov_pack"})
 
 
-def mesh_num_devices(mesh: Optional[IndexMesh]) -> int:
+def mesh_num_devices(mesh: Optional[DeviceMesh]) -> int:
     """Positions along the index mesh's shard axis (0 = no mesh)."""
     if mesh is None:
         return 0
@@ -72,7 +72,7 @@ def stacked_spec(name: str, shape, mesh) -> tuple:
     return spec_for(shape, axes, mesh, INDEX_RULES)
 
 
-def place_stacked(stk: dict, mesh: IndexMesh) -> dict:
+def place_stacked(stk: dict, mesh: DeviceMesh) -> dict:
     """Place a ``stacked_device_arrays`` dict (or any subset of its fields)
     on the index mesh: every ``(S, ...)`` pool as one row slice a position,
     ``REPLICATED_FIELDS`` (and pools the mesh does not divide) whole on
@@ -93,7 +93,7 @@ def place_stacked(stk: dict, mesh: IndexMesh) -> dict:
     return out
 
 
-def place_overlay_pack(ovr: dict, mesh: IndexMesh) -> dict:
+def place_overlay_pack(ovr: dict, mesh: DeviceMesh) -> dict:
     """Commit an overlay dict to replicated mesh placement: its pack on the
     mesh's first device (where the port's reads merge the overlay, after
     the gather) and, in ``ov_replicas``, an overlay dict on each other

@@ -29,7 +29,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.ckpt import latest_step, restore_checkpoint, save_checkpoint
+from ..checkpoint.ckpt import (latest_step, restore_checkpoint,
+                               save_checkpoint)
 from ..configs.base import ModelConfig
 from ..data.loader import ShardedLoader
 from ..data.store import PackedDocStore, synth_corpus
@@ -37,6 +38,7 @@ from ..device import resolve
 from ..launch.steps import make_train_step
 from ..models import model as M
 from ..optim import AdamWConfig, adamw_init
+from ..tree import leaf_numpy, leaf_tensor
 from .ft import SimCluster, StragglerDetector, plan_elastic_remesh
 
 
@@ -53,17 +55,18 @@ class TrainRunConfig:
     straggler_at: Optional[int] = None  # inject a straggler at this step
 
 
-def _numpy(flat: dict) -> dict:
-    return {k: v.detach().cpu().numpy() for k, v in flat.items()}
+def _numpy(flat) -> dict:
+    return {k: leaf_numpy(v) for k, v in dict(flat).items()}
 
 
 def checkpoint_tree(cfg: ModelConfig, model: M.DenseLM,
                     opt_state: dict) -> dict:
     """``{"params", "opt"}`` as the reference's driver saves it: numpy
     arrays, layer leaves stacked over L, the moments mirroring the params
-    and ``step`` an int32 scalar (bfloat16 parameters as their exact
-    float32 values: numpy has no bfloat16)."""
-    return {"params": M.numpy_from_params(model),
+    and ``step`` an int32 scalar.  bfloat16 parameters are their bits
+    (``tree.BF16_BITS``: numpy has no bfloat16), which
+    ``save_checkpoint`` writes under the reference's ``"bfloat16"``."""
+    return {"params": M.stacked_tree(cfg, _numpy(model.named_parameters())),
             "opt": {"mu": M.stacked_tree(cfg, _numpy(opt_state["mu"])),
                     "nu": M.stacked_tree(cfg, _numpy(opt_state["nu"])),
                     "step": np.asarray(opt_state["step"].cpu().numpy(),
@@ -81,14 +84,15 @@ def checkpoint_like(cfg: ModelConfig) -> dict:
 @torch.no_grad()
 def load_checkpoint_tree(cfg: ModelConfig, tree: dict, model: M.DenseLM,
                          opt_state: dict) -> None:
-    """Copy a :func:`checkpoint_tree` (numpy, either package's) into the
-    model's parameters and ``opt_state``, in place."""
+    """Copy a :func:`checkpoint_tree` (numpy, either package's; bfloat16
+    leaves as their bits or as ml_dtypes arrays) into the model's
+    parameters and ``opt_state``, in place."""
     params = M.flat_arrays(cfg, tree["params"])
     for k, p in model.named_parameters():
-        p.copy_(torch.from_numpy(np.array(params[k])))
+        p.copy_(leaf_tensor(params[k]))
     for m in ("mu", "nu"):
         for k, a in M.flat_arrays(cfg, tree["opt"][m]).items():
-            opt_state[m][k].copy_(torch.from_numpy(np.array(a)))
+            opt_state[m][k].copy_(leaf_tensor(a))
     opt_state["step"].fill_(int(tree["opt"]["step"]))
 
 

@@ -82,9 +82,9 @@ class ShardedIndexEngine(BaseIndexEngine):
     """Batching engine for mixed get/insert/delete/scan over range shards.
 
     ``device`` defaults to ``cuda:0`` and raises without CUDA; pass
-    ``device="cpu"`` for the plain PyTorch path.  With ``mesh`` (an
-    ``IndexMesh``) the engine runs on the mesh's first device, and a
-    ``device`` naming another raises."""
+    ``device="cpu"`` for the plain PyTorch path.  With ``mesh`` (from
+    ``parallel.index_mesh``) the engine runs on the mesh's first device,
+    and a ``device`` naming another raises."""
 
     def __init__(self, part: RangePartition, *, device=None,
                  gamma: float = 0.05, auto_compact: bool = True,

@@ -3,8 +3,44 @@ of leaves, walked as ``jax.tree`` walks them (dict keys sorted) and named
 by JAX's ``keystr`` paths (``"['params']['embed']"``, ``"[0]"``,
 ``".field"``); ``None`` is an empty subtree.  The checkpoint layout and the
 optimizer's leaf order (the order ``clip_by_global_norm`` sums in) both
-come from here."""
+come from here.
+
+A leaf crosses numpy through :func:`leaf_numpy` and :func:`leaf_tensor`.
+numpy has no ``bfloat16``: a bfloat16 leaf travels as its bits, a 2-byte
+void array (:data:`BF16_BITS`), the form ``np.load`` gives the reference's
+ml_dtypes leaves in; ``leaf_tensor`` also takes an ml_dtypes ``bfloat16``
+array (as ``jax.device_get`` gives it).  Checkpoints and the models'
+``params_from_numpy`` both read leaves through it."""
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+# a bfloat16 leaf's bits (numpy has no bfloat16)
+BF16_BITS = np.dtype("V2")
+
+
+def leaf_numpy(leaf) -> np.ndarray:
+    """A leaf as the numpy array a checkpoint stores: a tensor's values on
+    the host, a bfloat16 tensor's bits as :data:`BF16_BITS`."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_BITS)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def leaf_tensor(arr) -> torch.Tensor:
+    """A CPU tensor of a numpy leaf (a restored one, :func:`leaf_numpy`'s,
+    or any array-like): bfloat16's bits (:data:`BF16_BITS`, or an ml_dtypes
+    ``bfloat16`` array) as a bfloat16 tensor, anything else as
+    ``torch.from_numpy`` gives it (a read-only array, as a broadcast view,
+    is copied first)."""
+    arr = np.require(arr, requirements=["C", "W"])
+    if arr.dtype == BF16_BITS or arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _is_named_tuple(node) -> bool:

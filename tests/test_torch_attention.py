@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tr
+from repro_torch.tree import leaf_tensor
 from test_torch_contiguous import (B, CHUNK, POS, S, _layer_input, _t, case,
                                    close, ref_cache, port_cache, same_cache)
 
@@ -132,7 +133,7 @@ def test_full_attention(name, chunk):
             for b, seed in (("bq", 4), ("bk", 5), ("bv", 6)):
                 r = np.random.default_rng(seed).normal(size=rp[b].shape)
                 rp[b] = np.asarray(jnp.asarray(r).astype(rp[b].dtype))
-                getattr(pp, b).copy_(M._from_numpy(rp[b]))
+                getattr(pp, b).copy_(leaf_tensor(rp[b]))
         sl = bool(flags["sliding"][i])
         got = attn.full_attention(pcfg, pp, _t(x), _t(pos), sl)
         exp = ref_attn.full_attention(rcfg, rp, jnp.asarray(x),

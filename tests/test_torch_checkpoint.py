@@ -253,3 +253,141 @@ def test_restore_params_subset_on_qwen3_tree(tmp_path):
     flat = dict(_jax_leaves(params))
     for path in paths:
         np.testing.assert_array_equal(got[path], flat[path])
+
+
+# ------------------------------------------------- bfloat16 checkpoints
+def _bf16_bits(a) -> np.ndarray:
+    """The uint16 bits of a bfloat16 leaf (an ml_dtypes array, a 2-byte
+    void array or a bfloat16 tensor); other leaves as they are."""
+    if isinstance(a, torch.Tensor):
+        a = port_ckpt_mod.leaf_numpy(a)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == port_ckpt_mod.BF16_BITS:
+        return a.view(np.uint16)
+    return a
+
+
+def _moe_cfgs():
+    from repro.configs import get_config as ref_get
+    from repro_torch.configs import get_config
+    rcfg = ref_get("qwen2-moe-a2.7b").reduced()
+    pcfg = get_config("qwen2-moe-a2.7b").reduced()
+    assert rcfg.param_dtype == pcfg.param_dtype == "bfloat16"
+    return rcfg, pcfg
+
+
+def _stacked(cfg, named) -> dict:
+    """The reference's stacked tree of the port's named tensors, each leaf
+    as ``save_checkpoint`` stores it."""
+    from repro_torch.models import model as M
+    return M.stacked_tree(cfg, {k: port_ckpt_mod.leaf_numpy(v)
+                                for k, v in dict(named).items()})
+
+
+def _entries(path) -> dict:
+    """(shard, name) -> the raw bytes (header and data) of every ``.npy``
+    entry of a checkpoint's shards."""
+    import zipfile
+    out = {}
+    for s in range(port_ckpt_mod.SHARDS):
+        with zipfile.ZipFile(pathlib.Path(path) / f"shard_{s}.npz") as zf:
+            out.update({(s, n): zf.read(n) for n in zf.namelist()})
+    return out
+
+
+def test_bf16_reference_checkpoint_restores_into_the_port(tmp_path):
+    """The reference's checkpoint of the reduced qwen2-moe (bfloat16
+    parameters) restores into the port's model and AdamW state bit for
+    bit, and onto devices as bfloat16 tensors."""
+    import ml_dtypes
+
+    from repro.models import model as ref_M
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.driver import (checkpoint_like,
+                                            load_checkpoint_tree)
+    rcfg, pcfg = _moe_cfgs()
+    rng = np.random.default_rng(3)
+
+    def leaves(dtype):
+        return jax.tree.map(
+            lambda s: rng.normal(size=s.shape).astype(dtype),
+            ref_M.param_specs(rcfg), is_leaf=lambda x: hasattr(x, "axes"))
+
+    # the reference's tree as its driver saves it (ml_dtypes bfloat16
+    # parameters, float32 moments), seeded values
+    tree = {"params": leaves(ml_dtypes.bfloat16),
+            "opt": {"mu": leaves(np.float32), "nu": leaves(np.float32),
+                    "step": np.int32(11)}}
+    path = ref_ckpt.save_checkpoint(str(tmp_path), 11, tree)
+    manifest = ref_ckpt.load_manifest(path)[0]
+    assert manifest["entries"]["['params']['embed']"]["dtype"] == "bfloat16"
+
+    like = checkpoint_like(pcfg)
+    got, _ = restore_checkpoint(path, like)
+    assert got["params"]["embed"].dtype == port_ckpt_mod.BF16_BITS
+    model = init_params(pcfg, torch.Generator().manual_seed(1), "cpu")
+    state = adamw_init(model)
+    load_checkpoint_tree(pcfg, got, model, state)
+    assert model.embed.dtype == torch.bfloat16
+    assert int(state["step"]) == 11
+    back = dict(port_ckpt_mod._flatten(
+        {"params": _stacked(pcfg, model.named_parameters()),
+         "opt": {m: _stacked(pcfg, state[m]) for m in ("mu", "nu")}}))
+    exp = {p: a for p, a in _jax_leaves(tree) if p != "['opt']['step']"}
+    assert back.keys() == exp.keys()
+    for p, a in back.items():
+        assert a.shape == exp[p].shape, p
+        np.testing.assert_array_equal(_bf16_bits(a), _bf16_bits(exp[p]),
+                                      err_msg=p)
+
+    devs = jax.tree.map(lambda _: torch.device("cpu"), like,
+                        is_leaf=lambda x: hasattr(x, "axes"))
+    placed, _ = restore_checkpoint(path, like, devices=devs)
+    assert placed["params"]["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(placed["params"]["embed"]),
+                                  _bf16_bits(tree["params"]["embed"]))
+
+
+def test_bf16_port_checkpoint_equals_the_references(tmp_path):
+    """The port's checkpoint of a bfloat16 model: manifest dtype
+    ``bfloat16``, every shard entry's bytes (header and data) equal to the
+    reference's own save of the same values, and the reference's
+    ``restore_checkpoint`` reads back the same bits."""
+    import json
+
+    import ml_dtypes
+
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.driver import checkpoint_tree
+    _, pcfg = _moe_cfgs()
+    model = init_params(pcfg, torch.Generator().manual_seed(2), "cpu")
+    state = adamw_init(model)
+    gen = torch.Generator().manual_seed(5)
+    for m in ("mu", "nu"):
+        for t in state[m].values():
+            t.normal_(generator=gen)
+    state["step"].fill_(4)
+    tree = checkpoint_tree(pcfg, model, state)
+    port_dir = save_checkpoint(str(tmp_path / "port"), 4, tree)
+
+    as_ref = jax.tree.map(
+        lambda a: a.view(ml_dtypes.bfloat16)
+        if a.dtype == port_ckpt_mod.BF16_BITS else a, tree)
+    n_params = len(_jax_leaves(as_ref["params"]))
+    assert sum(a.dtype.name == "bfloat16"
+               for _, a in _jax_leaves(as_ref)) == n_params
+    ref_dir = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 4, as_ref)
+    text = (pathlib.Path(port_dir) / "manifest.json").read_text()
+    assert text == (pathlib.Path(ref_dir) / "manifest.json").read_text()
+    entries = json.loads(text)["entries"]
+    assert entries["['params']['embed']"]["dtype"] == "bfloat16"
+    assert entries["['opt']['mu']['embed']"]["dtype"] == "float32"
+    assert _entries(port_dir) == _entries(ref_dir)
+
+    got, _ = ref_ckpt.restore_checkpoint(port_dir, as_ref)
+    for (p, a), (_, b) in zip(_jax_leaves(as_ref), _jax_leaves(got)):
+        assert a.shape == b.shape, p
+        np.testing.assert_array_equal(_bf16_bits(a), _bf16_bits(b),
+                                      err_msg=p)

@@ -1098,6 +1098,87 @@ def test_contiguous_decode_on_card_matches_cpu(cuda, arch, kv):
             torch.testing.assert_close(cb[k], ca[k], atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-1b-a400m"])
+def test_grouped_moe_on_card_matches_cpu(cuda, arch):
+    """``moe_ffn`` under a (data=2, model=2) ``ShardingContext`` (G = 4
+    dispatch groups of capacity C/4; the mesh names cuda:0 four times) on
+    the card == on the CPU, a float32 reduced config whose first 28
+    tokens lean towards expert 0 (its queues overflow): output and aux
+    loss within 1e-4, the contiguous tests' tolerance (the card's combine
+    sums with atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ShardingContext, set_context
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator().manual_seed(28)
+    layer = moe.MoE(cfg, torch.float32)
+    with torch.no_grad():
+        for t in layer.parameters():
+            t.copy_(torch.randn(t.shape, generator=g) / np.sqrt(t.shape[-2]))
+    x = torch.randn((4, 16, cfg.d_model), generator=g)
+    r0 = layer.router.detach()[:, 0]
+    x.view(-1, cfg.d_model)[:28] += 4 * r0 / r0.norm()
+    card = moe.MoE(cfg, torch.float32, cuda)
+    card.load_state_dict(layer.state_dict())
+    set_context(ShardingContext(make_host_mesh(data=2, model=2,
+                                               devices=[cuda] * 4)))
+    try:
+        assert moe._dispatch_groups(4) == 4
+        y, aux = moe.moe_ffn(cfg, layer, x)
+        yc, auxc = moe.moe_ffn(cfg, card, x.to(cuda))
+    finally:
+        set_context(None)
+    torch.testing.assert_close(yc.cpu(), y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(auxc.cpu(), aux, atol=1e-4, rtol=1e-4)
+
+
+def test_grouped_remat_train_step_on_card(cuda):
+    """A ``make_train_step`` of reduced float32 granite-moe under a
+    (data=2, model=2) ``ShardingContext`` over cuda:0 named four times
+    (G = 4), with ``cfg.remat``: the backward runs on autograd's device
+    thread, and the recomputed layers must see the forward's groups.  Its
+    loss, gnorm and parameters equal those of the same step without remat
+    within the train test's tolerances (1e-4 relative; 1e-3 of a leaf's
+    largest weight), and they part from a step without a context (the
+    batch drops routes at G = 4 that G = 1 keeps)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import ShardingContext, installed
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              param_dtype="float32", compute_dtype="float32")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 33))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    start = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    ctx = ShardingContext(make_host_mesh(data=2, model=2,
+                                         devices=[cuda] * 4))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = {}
+    for name, remat, c in (("remat", True, ctx), ("kept", False, ctx),
+                           ("ungrouped", False, None)):
+        model = copy.deepcopy(start).to(cuda)
+        opt = adamw_init(model)
+        step = make_train_step(dataclasses.replace(cfg, remat=remat),
+                               opt_cfg, cuda)
+        with installed(c):
+            m = step(model, opt, batch)[2]
+        runs[name] = (model, m)
+    (a, ma), (b, mb) = runs["remat"], runs["kept"]
+    for k in ("loss", "gnorm"):
+        torch.testing.assert_close(ma[k], mb[k], rtol=1e-4, atol=0)
+    for (n, x), y in zip(a.named_parameters(), b.parameters()):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-3 * float(
+            y.detach().abs().max()), msg=n)
+    assert float(runs["ungrouped"][1]["gnorm"]) != float(mb["gnorm"])
+
+
 @pytest.mark.parametrize("n", [64, 1024, 5000, 70_000])
 def test_softmax_over_its_input_equals_out_of_place(cuda, n):
     """``models.attention._sdpa`` writes the softmax over its float32

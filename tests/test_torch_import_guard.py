@@ -22,7 +22,10 @@ for name in names:
 assert {"repro_torch.optim.adamw", "repro_torch.optim.compress",
         "repro_torch.data.store", "repro_torch.data.loader",
         "repro_torch.runtime.ft", "repro_torch.runtime.driver",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train", "repro_torch.core.pla",
+        "repro_torch.core.baselines.lipp", "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
+        "repro_torch.launch.cost_analysis"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "repro"
@@ -38,9 +41,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
     # K1-K6, the LM path of every family (rwkv6, mamba2 and the ten
-    # configs), the index mesh, checkpointing and training (optim, data,
-    # runtime, launch/train) included
-    assert int(count) >= 73, out.stdout
+    # configs), the index mesh, checkpointing, training (optim, data,
+    # runtime, launch/train), the baselines and pla, the LM sharding's
+    # launch/mesh and the dry-run (launch/dryrun, cost_analysis) included
+    assert int(count) >= 83, out.stdout
     assert bad == "[]", out.stdout
 
 

@@ -94,9 +94,9 @@ def test_index_mesh_validates_device_count():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             index_mesh()
-    assert mesh_local_shards(8, m.__class__((torch.device("cpu"),) * 4)) == 2
+    assert mesh_local_shards(8, index_mesh(4, devices=["cpu"] * 4)) == 2
     with pytest.raises(ValueError, match="divisible"):
-        mesh_local_shards(6, m.__class__((torch.device("cpu"),) * 4))
+        mesh_local_shards(6, index_mesh(4, devices=["cpu"] * 4))
 
 
 def _engine(mesh=None, **kw):
