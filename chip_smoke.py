@@ -1117,6 +1117,24 @@ def serve_and_check(eng, oracle: Oracle, trace: list,
     return out
 
 
+def traced(eng, run) -> dict:
+    """Call ``run()`` with ``eng``'s tracer on; the tracer's export (the
+    steps' phase spans, ``repro_torch/serving/tracing.py``)."""
+    eng.start_trace()
+    try:
+        run()
+    finally:
+        tr = eng.stop_trace()
+    return tr.export()
+
+
+def step_seconds(eng, run) -> np.ndarray:
+    """Call ``run()`` with ``eng``'s tracer on; the seconds of every step
+    it served (the engine's ``step`` spans)."""
+    from repro_torch.serving.tracing import span_seconds
+    return span_seconds(traced(eng, run), "step")
+
+
 def main_path(n: int, steps: int, dev, card: str, par: Parity) -> dict:
     import torch
     from repro_torch.core import Aulid, BlockDevice
@@ -1149,15 +1167,15 @@ def main_path(n: int, steps: int, dev, card: str, par: Parity) -> dict:
     with MergeCheck(par) as merges:
         fused_lookup.launches = 0
         overlay_merge.launches = 0
-        serve_and_check(eng, oracle, trace, merges)
+        step_s = step_seconds(
+            eng, lambda: serve_and_check(eng, oracle, trace, merges))
         launches = {"fused_lookup": fused_lookup.launches,
                     "overlay_merge": overlay_merge.launches}
     st = eng.stats()
-    step_s = np.asarray(eng.step_seconds)
     out = {
         "card": card, "keys": n, "steps": st["steps"],
         "requests": sum(len(s) for s in trace),
-        "steps_per_s": st["steps"] / eng.serve_seconds,
+        "steps_per_s": step_s.size / step_s.sum(),
         "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
         "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
         "first_step_ms": float(step_s[0]) * 1e3,
@@ -1183,114 +1201,95 @@ def main_path(n: int, steps: int, dev, card: str, par: Parity) -> dict:
             "summary": out, "oracle": oracle, "keys": keys, "span": (lo, hi)}
 
 
+# the engine's phase spans that breakdown() and index_profile() read
+PHASE_SPANS = {"host_writes": "writes.host", "overlay_merge": "writes.after",
+               "gets": "gets", "scans": "scans"}
+
+
 def breakdown(eng, oracle, make, steps: int) -> dict:
     """Serve ``steps`` more steps of ``make(rng)`` through ``eng`` with the
-    engine's phases timed on the host clock (device phases end in a
-    synchronize): mean seconds per step in host writes, the overlay merge
-    (batch upload + K2), gets (upload, K1, D2H, results) and scans; the rest
-    is admission and bookkeeping.  Each device phase's temporaries (its
-    peak device memory above what was allocated when it began, outside the
-    timers) are logged beside."""
-    import torch
-    acc = {"host_writes": 0.0, "overlay_merge": 0.0, "gets": 0.0,
-           "scans": 0.0}
-    temps = {"overlay_merge": 0, "gets": 0, "scans": 0}
-
-    def timed(name, fn, sync):
-        def run(*a, **kw):
-            if sync:
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            if sync:
-                torch.cuda.synchronize()
-            acc[name] += time.perf_counter() - t
-            if sync:
-                temps[name] = max(temps[name],
-                                  torch.cuda.max_memory_allocated() - base)
-            return out
-        return run
-
-    eng._apply_write = timed("host_writes", eng._apply_write, False)
-    eng._after_writes = timed("overlay_merge", eng._after_writes, True)
-    eng._serve_gets = timed("gets", eng._serve_gets, True)
-    eng._serve_scans = timed("scans", eng._serve_scans, True)
+    engine's tracer on: mean seconds per step in its phase spans, host
+    writes, the overlay merge (batch upload + K2's launches), gets (upload,
+    K1, D2H, results) and scans; the rest is the step's partition and
+    bookkeeping.  No phase ends in a synchronize: the merge's device time
+    falls in the gets' wait for their results.  ``gc``: the interpreter's
+    collections inside the steps, a part of the phases they fell in."""
+    from repro_torch.serving.tracing import span_mask, span_seconds
     rng = np.random.default_rng(13)
-    n0 = len(eng.step_seconds)
-    try:
-        serve_and_check(eng, oracle, [make(rng) for _ in range(steps)])
-    finally:
-        for name in ("_apply_write", "_after_writes", "_serve_gets",
-                     "_serve_scans"):
-            delattr(eng, name)
-    step_s = float(np.sum(eng.step_seconds[n0:])) / steps
-    out = {k: v / steps for k, v in acc.items()}
+    exp = traced(eng, lambda: serve_and_check(
+        eng, oracle, [make(rng) for _ in range(steps)]))
+    out = {k: float(span_seconds(exp, span).sum()) / steps
+           for k, span in PHASE_SPANS.items()}
+    step_s = float(span_seconds(exp, "step").sum()) / steps
     out["other"] = step_s - sum(out.values())
     out["step"] = step_s
+    sp, g = exp["spans"], exp["gc"]
+    m = span_mask(exp, "step")
+    a, b = sp["start_ns"][m], sp["end_ns"][m]
+    j = np.searchsorted(a, g["start_ns"], side="right") - 1
+    inside = (j >= 0) & (g["end_ns"] <= b[np.maximum(j, 0)])
+    out["gc"] = float((g["end_ns"] - g["start_ns"])[inside].sum()) / 1e9 \
+        / steps
     log("step breakdown (s per step): " + json.dumps(out))
-    log("device temporaries by phase (peak bytes above the allocation at "
-        "its start): " + json.dumps(temps))
     return out
-
-
-PHASES = {"_after_writes": "overlay_merge", "_serve_gets": "gets",
-          "_serve_scans": "scans"}
 
 
 def index_profile(eng, oracle, make, steps: int, label: str) -> dict:
     """Device time over ``steps`` more steps of ``make(rng)`` through
     ``eng`` (``torch.profiler``; results still checked, outside the step
-    timer): kernels a step, their device ms a step and the device's busy
-    share of the engine's step time, each phase's host ms, its kernels'
-    device ms and its span on the card (``record_function`` ranges), and
-    the top kernels."""
+    spans): kernels a step, their device ms a step and the device's busy
+    share of the engine's step time, each phase's host ms (its spans), its
+    device ms (the device operations launched inside its spans, put on the
+    host clock by the tracer's anchor) and its span on the card (first of
+    those operations to the last, idle gaps included), and the top
+    kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    def ranged(name, fn):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
+    from repro_torch.serving.tracing import anchor_offset, span_mask
 
-    def dev_us(e, own=True):
-        if own:
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0.0))
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
     rng = np.random.default_rng(31)
     trace = [make(rng) for _ in range(steps)]
-    for attr, name in PHASES.items():
-        setattr(eng, attr, ranged(name, getattr(eng, attr)))
-    n0 = len(eng.step_seconds)
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            serve_and_check(eng, oracle, trace)
-            torch.cuda.synchronize()
-    finally:
-        for attr in PHASES:
-            delattr(eng, attr)
-    step_ms = float(np.sum(eng.step_seconds[n0:])) * 1e3 / steps
-    ev = prof.key_averages()
-    # a range appears twice: on the host (its time; its kernels' device
-    # time) and on the card (first kernel to last, idle gaps included)
-    kern = [e for e in ev if e.device_type == DeviceType.CUDA
-            and e.key not in PHASES.values() and dev_us(e) > 0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exp = traced(eng, lambda: serve_and_check(eng, oracle, trace))
+        torch.cuda.synchronize()
+    sp = exp["spans"]
+    step_ms = float((sp["end_ns"] - sp["start_ns"])[
+        span_mask(exp, "step")].sum()) / 1e6 / steps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in kern) / 1e3 / steps
-    phases = {name: {} for name in PHASES.values()}
-    for e in ev:
-        if e.key not in phases:
-            continue
-        if e.device_type == DeviceType.CPU:
-            phases[e.key]["host_ms"] = e.cpu_time_total / 1e3 / steps
-            phases[e.key]["kernel_ms"] = dev_us(e, own=False) / 1e3 / steps
-        else:
-            phases[e.key]["device_span_ms"] = dev_us(e) / 1e3 / steps
+    # each device operation at its launch call's time on the host clock
+    events = list(prof.profiler.kineto_results.events())
+    offset = anchor_offset(events, exp["anchor_ns"])
+    launch = {e.correlation_id(): e.start_ns() - offset for e in events
+              if e.device_type() != DeviceType.CUDA
+              and e.name().startswith("cu") and e.correlation_id()}
+    ops = np.asarray([(launch[e.correlation_id()], e.start_ns() - offset,
+                       e.duration_ns()) for e in events
+                      if e.device_type() == DeviceType.CUDA
+                      and e.correlation_id() in launch],
+                     np.int64).reshape(-1, 3)
+    phases = {}
+    for name, span in PHASE_SPANS.items():
+        m = span_mask(exp, span)
+        host_ms = float((sp["end_ns"] - sp["start_ns"])[m].sum()) / 1e6
+        kernel_ms = span_ms = 0.0
+        for a, b in zip(sp["start_ns"][m], sp["end_ns"][m]):
+            inside = ops[(ops[:, 0] >= a) & (ops[:, 0] <= b)]
+            if inside.size:
+                kernel_ms += float(inside[:, 2].sum()) / 1e6
+                span_ms += float((inside[:, 1] + inside[:, 2]).max()
+                                 - inside[:, 1].min()) / 1e6
+        phases[name] = {"host_ms": host_ms / steps,
+                        "kernel_ms": kernel_ms / steps,
+                        "device_span_ms": span_ms / steps}
     out = {"steps": steps, "step_ms": step_ms,
            "device_ms_per_step": total,
            "device_busy_share": total / step_ms,
@@ -1424,19 +1423,19 @@ def sharded_phase(keys, dev, card: str, par: Parity) -> dict:
         fused_lookup_sharded.launches = 0
         overlay_merge.launches = 0
         overlay_merge_stacked.launches = 0
-        serve_and_check(eng, oracle, trace, merges)
+        step_s = step_seconds(
+            eng, lambda: serve_and_check(eng, oracle, trace, merges))
         launches = {"fused_lookup_sharded": fused_lookup_sharded.launches,
                     "overlay_merge": overlay_merge.launches,
                     "overlay_merge_stacked": overlay_merge_stacked.launches}
     st = eng.stats()
-    step_s = np.asarray(eng.step_seconds)
     gets = np.array([r[1] for step in trace for r in step if r[0] == "get"],
                     dtype=np.uint64)
     per_shard = np.bincount(part.shard_of_batch(gets), minlength=SHARDS)
     out = {
         "card": card, "keys": n, "shards": part.num_shards,
         "steps": st["steps"], "requests": sum(len(s) for s in trace),
-        "steps_per_s": st["steps"] / eng.serve_seconds,
+        "steps_per_s": step_s.size / step_s.sum(),
         "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
         "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
         "first_step_ms": float(step_s[0]) * 1e3,
@@ -1549,16 +1548,16 @@ def mesh_phase(state: dict, sh: dict, dev, card: str, par: Parity) -> dict:
     with MergeCheck(par) as merges:
         for c in counters:
             c.launches = 0
-        serve_and_check(eng, oracle, trace, merges)
+        step_s = step_seconds(
+            eng, lambda: serve_and_check(eng, oracle, trace, merges))
         launches = {c.__name__: c.launches for c in counters}
     st = eng.stats()
-    step_s = np.asarray(eng.step_seconds)
     peak = int(merges.max_memory_allocated())
     out = {
         "card": card, "keys": int(part.n_items), "shards": part.num_shards,
         "mesh_devices": st["mesh_devices"], "steps": st["steps"],
         "requests": sum(len(s) for s in trace),
-        "steps_per_s": st["steps"] / eng.serve_seconds,
+        "steps_per_s": step_s.size / step_s.sum(),
         "p50_step_ms": float(np.percentile(step_s, 50)) * 1e3,
         "p99_step_ms": float(np.percentile(step_s, 99)) * 1e3,
         "first_step_ms": float(step_s[0]) * 1e3,

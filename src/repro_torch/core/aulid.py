@@ -1,4 +1,5 @@
-# Copied from src/repro/core/aulid.py (the port keeps its own copy).
+# Copied from src/repro/core/aulid.py (the port keeps its own copy; it
+# also counts its walks: leaf_walks, null_scans, null_scan_slots).
 """AULID — A fully on-disk Updatable Learned Index (host structure).
 
 Faithful implementation of the paper (see DESIGN.md §1):
@@ -318,6 +319,13 @@ class Aulid(OrderedIndex):
         self.smo_leaf_splits = 0
         self.smo_node_creates = 0
         self.smo_adjusts = 0
+        # Host walk counters (always on, like smo_*): root-to-leaf walks
+        # (``_find_leaf`` calls), NULL forward scans in ``_resolve_slot``,
+        # and the tag slots those scans examine (``fanout - slot`` each:
+        # ``MixedNode.next_occupied`` runs over the node's whole tail)
+        self.leaf_walks = 0
+        self.null_scans = 0
+        self.null_scan_slots = 0
         # Change journal since bulkload (DESIGN.md §3): consumed by the
         # incremental mirror refresh and the serving engine's delta overlay.
         # ``journal_base`` is the absolute position of journal[0]: refresh
@@ -523,6 +531,8 @@ class Aulid(OrderedIndex):
             if tag == TAG_NULL:
                 # Issue 2 (§4.2.3): scan forward to the next DATA-ish slot;
                 # each block boundary crossed costs one extra read.
+                self.null_scans += 1
+                self.null_scan_slots += node.fanout - slot
                 nxt = node.next_occupied(slot)
                 spb = cfg.mixed_slots_per_block
                 last = min(nxt, node.fanout - 1)
@@ -578,6 +588,7 @@ class Aulid(OrderedIndex):
 
     def _find_leaf(self, key: int) -> int:
         """Root-to-leaf traversal returning the candidate leaf block id."""
+        self.leaf_walks += 1
         # Metanode check (in-memory, no I/O): last-leaf shortcut (§4.2.1).
         if self.last_leaf >= 0 and key >= self.last_leaf_min:
             return self.last_leaf

@@ -39,6 +39,7 @@ engine stays the S=1 special case.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Optional
 
@@ -55,6 +56,7 @@ from ..core.lookup import (device_arrays, lookup_batch_overlay,
                            overlay_arrays_merged, scan_batch_overlay,
                            update_leaf_rows)
 from ..device import resolve
+from .tracing import Tracer
 
 MIN_SCAN_BUCKET = 8
 
@@ -129,10 +131,11 @@ class IndexShard:
     ov_merge: bool = False
     ov_struct: Optional[tuple] = None
     write_h2d_bytes: int = 0
-    write_host_s: float = 0.0
     overlay_merges: int = 0
     overlay_reseeds: int = 0
     device: Optional[torch.device] = None
+    # the owning ``IndexEngine``'s tracer while it traces (tracing.py)
+    tracer: Optional[Tracer] = None
 
     @classmethod
     def wrap(cls, idx: Aulid, gamma: float, with_arrays: bool = True,
@@ -245,6 +248,9 @@ class IndexShard:
         update is the owner engine's job (``restack_shard``)."""
         assert self.frozen_overlay is None, \
             "sync compact during in-flight compaction (drain first)"
+        tr = self.tracer
+        if tr is not None:
+            tr.open("compact")
         old = self.di
         self.di = refresh_device_index(self.idx, old)
         if self.arrs is not None:
@@ -256,6 +262,8 @@ class IndexShard:
         if self.ov_arrs is not None:
             self.refresh_overlay_arrays()
         self.compactions += 1
+        if tr is not None:
+            tr.close()
 
     def refresh_overlay_arrays(self) -> None:
         """Sync the device overlay pack with this step's writes
@@ -278,11 +286,13 @@ class IndexShard:
         Both paths keep the two device packs of ``merge_overlay_pack``
         (served and spare): a merge writes into the spare, a reseed uploads
         into it."""
-        t0 = time.perf_counter()
+        tr = self.tracer
         struct = (self.overlay.uid,
                   self.frozen_overlay.uid if self.frozen_overlay else 0)
         if (self.ov_merge and self.ov_arrs is not None
                 and struct == self.ov_struct):
+            if tr is not None:
+                tr.open("overlay.merge")
             batch = self.overlay.take_batch()
             if batch[0].size:
                 live = self.overlay_live()
@@ -292,8 +302,11 @@ class IndexShard:
                     self.ov_arrs, batch, cap_out, live)
                 self.write_h2d_bytes += nbytes
                 self.overlay_merges += 1
-            self.write_host_s += time.perf_counter() - t0
+            if tr is not None:
+                tr.close()
             return
+        if tr is not None:
+            tr.open("overlay.reseed")
         self.overlay.mark_synced()
         if self.frozen_overlay is not None:
             self.frozen_overlay.mark_synced()
@@ -306,7 +319,8 @@ class IndexShard:
         self.ov_struct = struct
         self.overlay_reseeds += 1
         self.write_h2d_bytes += int(self.ov_arrs["ov_pack"].nbytes)
-        self.write_host_s += time.perf_counter() - t0
+        if tr is not None:
+            tr.close()
 
     def overlay_live(self) -> int:
         """Upper bound on live served-overlay entries (scan ``ov_bound``):
@@ -318,12 +332,14 @@ class IndexShard:
 
 
 class BaseIndexEngine:
-    """Request admission, fused-batch read serving, and step timing shared by
-    the monolithic and range-sharded engines (DESIGN.md §4, §9).
+    """Request admission, fused-batch read serving, and the step's spans
+    (``tracing.py``) shared by the monolithic and range-sharded engines
+    (DESIGN.md §4, §9).
 
     Subclasses bind the read entry points (``self._lookup`` /
-    ``self._scan``, called with the device operands `_snap()` / `_ov()`) and
-    implement the write/compaction path (`_apply_write`, `_after_writes`)."""
+    ``self._scan``, called with the device operands `_snap()` / `_ov()`),
+    implement the write/compaction path (`_apply_write`, `_after_writes`)
+    and name the host indexes the write span counts over (`_indexes`)."""
 
     def __init__(self, device=None):
         self.device = resolve(device)
@@ -333,9 +349,7 @@ class BaseIndexEngine:
         self.steps = 0
         self.reads_served = 0
         self.writes_applied = 0
-        self.read_batch_sizes: list[int] = []
-        self.serve_seconds = 0.0
-        self.step_seconds: list[float] = []   # per-step latency (p99 source)
+        self.tracer: Optional[Tracer] = None
         # first-seen read specializations — static args (count bucket /
         # ov_bound / height) PLUS every device operand's shape: the
         # reference's jit cache key, kept so both engines count the same
@@ -375,6 +389,48 @@ class BaseIndexEngine:
     def scan(self, key: int, count: int = 100) -> IndexRequest:
         return self.submit("scan", key, count=count)
 
+    # --------------------------------------------------------------- tracing
+    def start_trace(self) -> Tracer:
+        """Keep the steps' spans and counters and the submit stamps of one
+        request in ``tracing.STAMP_EVERY`` on average from now on
+        (``tracing.py``); start a profiler first to share its clock."""
+        if self.tracer is not None:
+            raise RuntimeError("the engine is already tracing")
+        tr = Tracer()
+        tr.anchor()
+        self.submit = tr.stamped(type(self).submit.__get__(self))
+        gc.callbacks.append(tr.collecting)
+        self.tracer = tr
+        return tr
+
+    def stop_trace(self) -> Tracer:
+        """Stop tracing; returns the tracer (``export()`` gives its
+        readings)."""
+        tr = self.tracer
+        if tr is None:
+            raise RuntimeError("the engine is not tracing")
+        del self.submit
+        gc.callbacks.remove(tr.collecting)
+        self.tracer = None
+        tr.stop_ns = time.perf_counter_ns()
+        return tr
+
+    def _index_counts(self) -> dict:
+        """The host indexes' always-on counters, summed (``writes.host``'s
+        deltas)."""
+        out = dict.fromkeys(("block_reads", "block_writes", "leaf_walks",
+                             "null_scans", "null_scan_slots"), 0)
+        devs = {}
+        for idx in self._indexes():
+            devs[id(idx.dev)] = idx.dev
+            out["leaf_walks"] += idx.leaf_walks
+            out["null_scans"] += idx.null_scans
+            out["null_scan_slots"] += idx.null_scan_slots
+        for dev in devs.values():
+            out["block_reads"] += dev.stats.reads
+            out["block_writes"] += dev.stats.writes
+        return out
+
     # ---------------------------------------------------- subclass bindings
     def _begin_step(self) -> None:
         """Epoch-swap point of the double-buffered compaction lifecycle
@@ -410,22 +466,38 @@ class BaseIndexEngine:
         """Compaction policy + overlay device-pack refresh."""
         raise NotImplementedError
 
+    def _indexes(self) -> list:
+        """The host ``Aulid`` indexes the writes go to."""
+        raise NotImplementedError
+
     # ------------------------------------------------------------- read path
     def _queries(self, keys: list[int]) -> torch.Tensor:
         return keys_to_tensor(pad_queries(keys), self.device)
 
     def _serve_gets(self, gets: list[IndexRequest]) -> None:
+        tr = self.tracer
+        if tr is not None:
+            tr.open("gets")
+            tr.open("gets.queries")
         q = self._queries([r.key for r in gets])
         self._note_read_shape("get", q.shape[0])
+        if tr is not None:
+            tr.lap("gets.launch")
         pay, found, _ = self._lookup(self._snap(), self._ov(), q,
                                      height=self._height())
+        if tr is not None:
+            tr.lap("gets.fetch")
         pay = bits_from_tensor(pay)
         found = found.cpu().numpy()
+        if tr is not None:
+            tr.lap("gets.fill")
         for i, r in enumerate(gets):
             r.result = int(pay[i]) if bool(found[i]) else None
             r.done = True
         self.reads_served += len(gets)
-        self.read_batch_sizes.append(len(gets))
+        if tr is not None:
+            tr.close()
+            tr.close()
 
     def _serve_scans(self, scans: list[IndexRequest]) -> None:
         by_bucket: dict[int, list[IndexRequest]] = {}
@@ -434,20 +506,32 @@ class BaseIndexEngine:
         # live-overlay bound (pow2-bucketed): the scan's unrolled leaf walk
         # scales with how full the overlay IS, not its padded capacity
         ov_bound = next_pow2(max(self._overlay_live(), MIN_SCAN_BUCKET))
+        tr = self.tracer
         for bucket, grp in sorted(by_bucket.items()):
+            if tr is not None:
+                tr.open("scans")
+                tr.open("scans.queries")
             q = self._queries([r.key for r in grp])
             self._note_read_shape("scan", q.shape[0], bucket, ov_bound)
+            if tr is not None:
+                tr.lap("scans.launch")
             ks, ps, valid = self._scan(self._snap(), self._ov(), q,
                                        count=bucket, height=self._height(),
                                        ov_bound=ov_bound)
+            if tr is not None:
+                tr.lap("scans.fetch")
             ks, ps = keys_from_tensor(ks), bits_from_tensor(ps)
             valid = valid.cpu().numpy()
+            if tr is not None:
+                tr.lap("scans.pairs")
             for i, r in enumerate(grp):
                 n = min(int(valid[i].sum()), r.count or 100)
                 r.result = list(zip(ks[i][:n].tolist(), ps[i][:n].tolist()))
                 r.done = True
             self.reads_served += len(grp)
-            self.read_batch_sizes.append(len(grp))
+            if tr is not None:
+                tr.close()
+                tr.close()
 
     # ------------------------------------------------------------------ step
     def step(self) -> int:
@@ -455,25 +539,40 @@ class BaseIndexEngine:
         all reads as fused device batches. Returns requests completed."""
         if not self.queue:
             return 0
-        t0 = time.perf_counter()
+        tr = self.tracer
+        if tr is not None:
+            tr.step = self.steps
+            tr.open("step")
+            tr.open("step.begin")
         self._begin_step()
+        if tr is not None:
+            tr.lap("step.partition")
         batch, self.queue = self.queue, []
         writes = [r for r in batch if r.op in ("insert", "delete")]
         gets = [r for r in batch if r.op == "get"]
         scans = [r for r in batch if r.op == "scan"]
-        for r in writes:
-            self._apply_write(r)
+        if tr is not None:
+            tr.close()
         if writes:
+            if tr is not None:
+                tr.open("writes.host", self._index_counts())
+            for r in writes:
+                self._apply_write(r)
+            if tr is not None:
+                tr.close(self._index_counts(), writes=len(writes))
+                tr.open("writes.after")
             self._after_writes()
+            if tr is not None:
+                tr.close()
         if gets:
             self._serve_gets(gets)
         if scans:
             self._serve_scans(scans)
         self._end_step()
         self.steps += 1
-        dt = time.perf_counter() - t0
-        self.serve_seconds += dt
-        self.step_seconds.append(dt)
+        if tr is not None:
+            tr.close(rid_first=batch[0].rid, rid_last=batch[-1].rid,
+                     writes=len(writes), gets=len(gets), scans=len(scans))
         return len(batch)
 
     def run(self) -> int:
@@ -484,17 +583,10 @@ class BaseIndexEngine:
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:
-        ops = self.reads_served + self.writes_applied
         return {
             "steps": self.steps,
             "reads_served": self.reads_served,
             "writes_applied": self.writes_applied,
-            "mean_read_batch": (float(np.mean(self.read_batch_sizes))
-                                if self.read_batch_sizes else 0.0),
-            "throughput_ops_s": (ops / self.serve_seconds
-                                 if self.serve_seconds else 0.0),
-            "p99_step_s": (float(np.percentile(self.step_seconds, 99))
-                           if self.step_seconds else 0.0),
             "read_shape_misses": self.read_shape_misses,
         }
 
@@ -644,6 +736,19 @@ class IndexEngine(BaseIndexEngine):
     def _overlay_live(self) -> int:
         return self.shard.overlay_live()
 
+    # --------------------------------------------------------------- tracing
+    def start_trace(self) -> Tracer:
+        tr = super().start_trace()
+        self.shard.tracer = tr
+        return tr
+
+    def stop_trace(self) -> Tracer:
+        self.shard.tracer = None
+        return super().stop_trace()
+
+    def _indexes(self) -> list:
+        return [self.shard.idx]
+
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:
         return {
@@ -659,5 +764,4 @@ class IndexEngine(BaseIndexEngine):
             "overlay_merges": self.shard.overlay_merges,
             "overlay_reseeds": self.shard.overlay_reseeds,
             "write_h2d_bytes": self.shard.write_h2d_bytes,
-            "write_host_s": self.shard.write_host_s,
         }

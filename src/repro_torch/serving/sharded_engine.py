@@ -51,8 +51,6 @@ steps only.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -154,7 +152,6 @@ class ShardedIndexEngine(BaseIndexEngine):
         self.overlay_merge = bool(overlay_merge)
         self._pack_struct: tuple | None = None
         self.write_h2d_bytes = 0
-        self.write_host_s = 0.0
         self.overlay_merges = 0
         self.overlay_reseeds = 0
         self.ov_arrs = None
@@ -646,11 +643,10 @@ class ShardedIndexEngine(BaseIndexEngine):
         if sig == self._pack_sig and self.ov_arrs is not None:
             self.pack_skips += 1
             return self.ov_arrs
-        t0 = time.perf_counter()
         struct = tuple((s[0], s[2]) for s in sig)
         if (self.overlay_merge and self.ov_arrs is not None
                 and struct == self._pack_struct):
-            out = self._delta_merge_pack(sig, t0)
+            out = self._delta_merge_pack(sig)
             if out is not None:
                 return out
         segs = []
@@ -691,10 +687,9 @@ class ShardedIndexEngine(BaseIndexEngine):
         if self.mesh is not None:
             # replicated once, here: later delta merges run on every copy
             ovr = place_overlay_pack(ovr, self.mesh)
-        self.write_host_s += time.perf_counter() - t0
         return ovr
 
-    def _delta_merge_pack(self, sig: tuple, t0: float) -> dict | None:
+    def _delta_merge_pack(self, sig: tuple) -> dict | None:
         """O(batch) write-path sync: drain every shard's pending writes, ship
         the one concatenated sorted batch, merge on device.  Returns None
         when there is nothing to merge (a version bump without pending
@@ -723,7 +718,6 @@ class ShardedIndexEngine(BaseIndexEngine):
         self._pack_live = bound
         self.write_h2d_bytes += nbytes
         self.overlay_merges += 1
-        self.write_host_s += time.perf_counter() - t0
         return ovr
 
     # ------------------------------------------------------------- read path
@@ -771,6 +765,9 @@ class ShardedIndexEngine(BaseIndexEngine):
     def _height(self) -> int:
         return max(self.sdi.max_inner_height, 3)
 
+    def _indexes(self) -> list:
+        return [sh.idx for sh in self.shards]
+
     def _overlay_live(self) -> int:
         # tracked pack occupancy: on rebuild the recorded fill IS the served
         # frozen+live entry count; on a delta merge it is the host dicts'
@@ -798,7 +795,6 @@ class ShardedIndexEngine(BaseIndexEngine):
             "overlay_merges": self.overlay_merges,
             "overlay_reseeds": self.overlay_reseeds,
             "write_h2d_bytes": self.write_h2d_bytes,
-            "write_host_s": self.write_host_s,
             "splits": self.splits,
             "merges": self.merges,
             "repart_failures": self.repart_failures,
