@@ -5,9 +5,10 @@ from .engine import Request, ServeEngine
 from .index_engine import (IndexEngine, IndexRequest, IndexShard,
                            compaction_executor, pad_queries, scan_bucket)
 from .kv_cache import LearnedPageTable, PagePool
+from .scan_rows import ScanRows
 from .sharded_engine import ShardedIndexEngine
 
 __all__ = ["IndexEngine", "IndexRequest", "IndexShard",
            "compaction_executor", "pad_queries", "scan_bucket",
-           "LearnedPageTable", "PagePool", "Request", "ServeEngine",
-           "ShardedIndexEngine"]
+           "LearnedPageTable", "PagePool", "Request", "ScanRows",
+           "ServeEngine", "ShardedIndexEngine"]

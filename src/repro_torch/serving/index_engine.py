@@ -56,6 +56,7 @@ from ..core.lookup import (device_arrays, lookup_batch_overlay,
                            overlay_arrays_merged, scan_batch_overlay,
                            update_leaf_rows)
 from ..device import resolve
+from .scan_rows import ScanRows
 from .tracing import Tracer
 
 MIN_SCAN_BUCKET = 8
@@ -98,7 +99,7 @@ class IndexRequest:
     key: int
     payload: int = 0
     count: int = 0             # scan length
-    result: object = None      # get: payload|None; delete: bool; scan: pairs
+    result: object = None   # get: payload|None; delete: bool; scan: ScanRows
     done: bool = False
 
 
@@ -524,13 +525,16 @@ class BaseIndexEngine:
             valid = valid.cpu().numpy()
             if tr is not None:
                 tr.lap("scans.pairs")
-            for i, r in enumerate(grp):
-                n = min(int(valid[i].sum()), r.count or 100)
-                r.result = list(zip(ks[i][:n].tolist(), ps[i][:n].tolist()))
+            # each request's rows copied out of the batch's: a kept answer
+            # holds its own rows, not the (Q, bucket) fetch
+            ns = np.minimum(valid.sum(1)[:len(grp)],
+                            [r.count or 100 for r in grp]).tolist()
+            for r, k, p, n in zip(grp, ks, ps, ns):
+                r.result = ScanRows(k[:n].copy(), p[:n].copy())
                 r.done = True
             self.reads_served += len(grp)
             if tr is not None:
-                tr.close()
+                tr.close(rows=sum(ns))
                 tr.close()
 
     # ------------------------------------------------------------------ step

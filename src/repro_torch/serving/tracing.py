@@ -30,7 +30,8 @@ opened).  The sites, parent first:
   (the results into the requests);
 * ``scans``, one a scan-length bucket: ``_serve_scans``; children
   ``scans.queries``, ``scans.launch`` (the scan call), ``scans.fetch``,
-  ``scans.pairs`` (rows into Python pairs).
+  ``scans.pairs`` (rows into each request's ``ScanRows``; counter
+  ``rows``, the rows handed out).
 
 The engine's own totals (``stats()``: swaps, H2D bytes, merges, reseeds)
 are not repeated here: difference two ``stats()`` for them.

@@ -435,6 +435,44 @@ def test_engine_on_card_matches_cpu(cuda, async_compact):
     assert st[0]["compactions"] == st[1]["compactions"] >= 1
 
 
+def test_engine_on_card_scans_of_100_match_cpu(cuda):
+    """A step of 8,192 scans of 100 on the card (the benchmark's w2 step)
+    over a bulkloaded index with a live overlay and writes of the same
+    step: each answer is a ``ScanRows`` owning its rows, equal to the CPU
+    engine's and to the host index's list (``Aulid.scan``).  The JAX
+    reference's lists are held to the CPU engine at this shape in
+    ``test_torch_scan_rows.py``."""
+    from repro_torch.serving import ScanRows
+    keys = make_dataset("covid", 200_000, seed=1)
+    rng = np.random.default_rng(5)
+    before = ([("insert", int(k), int(k) % 89)
+               for k in rng.integers(1, 2**60, 300, dtype=np.uint64)]
+              + [("delete", int(k)) for k in rng.choice(keys, 100)])
+    step = ([("insert", int(k), int(k) % 97)
+             for k in rng.integers(1, 2**60, 300, dtype=np.uint64)]
+            + [("delete", int(k)) for k in rng.choice(keys, 100)]
+            + [("scan", int(k), 0, 100) for k in rng.choice(keys, 8192)])
+    engines, outs = [], []
+    for device in ("cpu", cuda):
+        idx = Aulid(BlockDevice())
+        idx.bulkload(keys, payloads_for(keys))
+        eng = IndexEngine(idx, device=device, gamma=0.5)
+        for s in (before, step):
+            reqs = [eng.submit(*a) for a in s]
+            eng.step()
+        engines.append(eng)
+        outs.append([r.result for r in reqs if r.op == "scan"])
+    assert engines[1].stats()["read_backend"] == "cuda"
+    assert engines[1]._overlay_live() > 0
+    assert len(outs[1]) == 8192
+    host = engines[0].idx
+    for (_, key, _, count), cpu_rows, card_rows in zip(step[400:], *outs):
+        assert isinstance(card_rows, ScanRows) and len(card_rows) == count
+        assert card_rows.keys.base is None and card_rows.payloads.base is None
+        assert card_rows == cpu_rows
+        assert card_rows == host.scan(key, count)
+
+
 def _same(got, exp):
     torch.cuda.synchronize()
     for g, e in zip(got, exp):
